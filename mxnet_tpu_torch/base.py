@@ -1,0 +1,129 @@
+"""Core types: Context (device model), dtype flags, errors.
+
+The PyTorch counterpart of ``mxnet_tpu/base.py``.  A Context resolves to a
+``torch.device``: ``gpu(i)`` is CUDA device ``i``, ``cpu()`` the host.
+Nothing falls back: a ``gpu`` Context on a machine without that CUDA
+device raises instead of quietly running on the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu",
+           "_DTYPE_TORCH_TO_MX", "_DTYPE_MX_TO_TORCH", "_dtype", "dtype_name"]
+
+
+class MXNetError(RuntimeError):
+    """Framework error type (reference: dmlc error -> MXGetLastError)."""
+
+
+# dtype <-> integer flag mapping of the reference binary format (mshadow's
+# type flags; 7 is the bfloat16 extension flag the JAX package writes)
+_DTYPE_TORCH_TO_MX = {
+    torch.float32: 0,
+    torch.float64: 1,
+    torch.float16: 2,
+    torch.uint8: 3,
+    torch.int32: 4,
+    torch.int8: 5,
+    torch.int64: 6,
+    torch.bfloat16: 7,
+    torch.bool: 8,
+}
+_DTYPE_MX_TO_TORCH = {v: k for k, v in _DTYPE_TORCH_TO_MX.items()}
+
+_DTYPE_BY_NAME = {str(dt).replace("torch.", ""): dt
+                  for dt in _DTYPE_TORCH_TO_MX}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.float32`` -> ``"float32"``: the spelling symbol JSON uses."""
+    return str(dtype).replace("torch.", "")
+
+
+def _dtype(dtype) -> torch.dtype:
+    """Normalize a user dtype (torch dtype / numpy dtype / name / mx flag)
+    to a ``torch.dtype``.  ``None`` is float32."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, int) and not isinstance(dtype, bool):
+        return _DTYPE_MX_TO_TORCH[dtype]
+    if isinstance(dtype, str):
+        name = dtype
+    else:
+        name = np.dtype(dtype).name
+    if name not in _DTYPE_BY_NAME:
+        raise MXNetError("unsupported dtype %r" % (dtype,))
+    return _DTYPE_BY_NAME[name]
+
+
+class Context:
+    """Device context: ``cpu(0)``, ``gpu(1)``...
+
+    A (device type, device id) pair with string form ``"gpu(0)"``, as in
+    the reference (``include/mxnet/base.h:116-207``).  The device type
+    may be given by name or by the reference's integer id (1 = cpu,
+    2 = gpu).
+    """
+
+    devtype2str = {1: "cpu", 2: "gpu"}
+    devstr2type = {"cpu": 1, "gpu": 2}
+
+    def __init__(self, device_type, device_id=0):
+        if isinstance(device_type, Context):
+            device_type, device_id = device_type.device_type, \
+                device_type.device_id
+        if isinstance(device_type, int) and not isinstance(device_type, bool):
+            if device_type not in Context.devtype2str:
+                raise MXNetError("unknown device type id %d" % device_type)
+            device_type = Context.devtype2str[device_type]
+        if device_type not in Context.devstr2type:
+            raise MXNetError("unknown device type %r (expected one of %s)"
+                             % (device_type, sorted(Context.devstr2type)))
+        self.device_typeid = Context.devstr2type[device_type]
+        self.device_id = int(device_id)
+
+    @property
+    def device_type(self):
+        return Context.devtype2str[self.device_typeid]
+
+    def __hash__(self):
+        return hash((self.device_typeid, self.device_id))
+
+    def __eq__(self, other):
+        return (isinstance(other, Context)
+                and self.device_typeid == other.device_typeid
+                and self.device_id == other.device_id)
+
+    def __str__(self):
+        return "%s(%d)" % (self.device_type, self.device_id)
+
+    __repr__ = __str__
+
+    def torch_device(self) -> torch.device:
+        """The ``torch.device`` this context names; raises when it names
+        a CUDA device this process cannot see."""
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise MXNetError(
+                "%s requested but no CUDA device is available; pass "
+                "dev_type='cpu' to run on the CPU" % self)
+        n = torch.cuda.device_count()
+        if self.device_id >= n:
+            raise MXNetError("%s requested but only %d CUDA device(s) exist"
+                             % (self, n))
+        return torch.device("cuda", self.device_id)
+
+
+def cpu(device_id=0):
+    """Return a CPU context (reference ``base.h:240``)."""
+    return Context("cpu", device_id)
+
+
+def gpu(device_id=0):
+    """Return a CUDA context (reference ``base.h:252``)."""
+    return Context("gpu", device_id)

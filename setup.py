@@ -32,10 +32,14 @@ setup(
     version="0.1.0",
     description="TPU-native deep learning framework with the classic "
                 "mx.* API (NDArray/Symbol/Module/KVStore) on JAX/XLA/Pallas",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
-    package_data={"mxnet_tpu": ["lib/*.so"]},
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
+    # the PyTorch/CUDA port ships its kernel sources: nvcc builds them
+    # into mxnet_tpu_torch/_build at first use on a CUDA machine
+    package_data={"mxnet_tpu": ["lib/*.so"],
+                  "mxnet_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
-    extras_require={"test": ["pytest", "pillow"]},
+    extras_require={"test": ["pytest", "pillow"], "torch": ["torch"]},
     cmdclass={"build_py": BuildWithNative},
 )
