@@ -11,18 +11,29 @@ fails:
 1. environment: the card's name and power limit; TF32 off for matrix
    products and convolutions, so float32 means float32;
 2. build: every CUDA kernel of the serving path, from
-   ``mxnet_tpu_torch/csrc``, one nvcc per source, all at once;
+   ``mxnet_tpu_torch/csrc``, one nvcc per source, all at once; then one
+   ``mt.rtc`` kernel compiled by NVRTC cold, and again from the module
+   cache;
 3. kernel check: each kernel against its plain PyTorch version on the
    card, at the serving shapes and at ragged, cross-shaped and other
    head-dim shapes, in float32 and bfloat16;
-4. serve: the transformer LM at GPT-2 small's published widths, random
+4. rtc check: each ``language="cuda"`` rtc kernel against its
+   ``language="torch"`` plain version on the card: ``tests/test_rtc.py``'s
+   three cases, explicit grid and block dims, bfloat16, outputs that are
+   strided views or of another dtype, and a push at new shapes;
+5. serve: the transformer LM at GPT-2 small's published widths, random
    weights from a seed, saved as ``-symbol.json`` + ``.params`` and
    loaded by ``Predictor.from_checkpoint`` onto the card; three requests
    of 4 x 1024 tokens, with each kernel's launches counted, and the
    logits held against the port's own CPU run of one request;
-5. times: each kernel, its plain version and the PyTorch library call
+6. imperative: one GPT-2-small block built only from ``mt.nd`` calls on
+   ``mt.gpu()`` NDArrays at 4 x 1024 tokens, its GELU an ``mt.rtc``
+   CUDA kernel, with each kernel's launches counted and the result held
+   against the same calls on ``mt.cpu()`` NDArrays;
+7. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes; the
-   Predictor's requests/s and tokens/s.
+   Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
+   2^26 floats, the block's GELU) and the host cost of one push.
 
 The line before the last is one JSON object with a record per kernel;
 the last line names the device.
@@ -42,6 +53,7 @@ import torch.nn.functional as F
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.op.kernels import build
 from mxnet_tpu_torch.op.kernels import flash_attention as fa
+from mxnet_tpu_torch.rtc import Rtc
 
 # openai-community/gpt2 config.json: n_embd 768, n_head 12, n_layer 12,
 # n_positions 1024, vocab_size 50257
@@ -89,6 +101,92 @@ CHECKS = [
 ]
 
 
+# rtc kernel vs its torch-language version on the card: float32
+# elementwise bodies, the same operations in the same order, the card's
+# libm (sinf, tanhf) against torch's, 1-2 ulp apart; bfloat16 bodies
+# compute in float32 and round once, exactly as torch's copy_ rounds
+RTC_TOL = {torch.float32: dict(rtol=2e-6, atol=2e-6),
+           torch.bfloat16: dict(rtol=0, atol=0)}
+# a GPT-2-small block on the card (kernels, cuBLAS without TF32) against
+# the same mt.nd calls on the CPU: PR 1's logits tolerance
+BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)
+AXPY_N = 1 << 26
+# about 1 ms of the SM clock: longer than the host takes to issue any
+# call that cuda_ms times
+SLEEP_CYCLES = 2_000_000
+
+_IDX = "long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;"
+# (name, body) pairs in both languages; the CUDA body of a case with
+# launch dims reads them, the others take one thread per output element
+AXPY = ("    %s\n    if (i < y_size) y[i] = alpha_[0] * x[i] + 1.0f;" % _IDX,
+        "y = alpha_ * x + 1")
+AXPY_STRIDED = ("""
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < y_size; i += (long long)gridDim.x * blockDim.x)
+        y[i] = alpha_[0] * x[i] + 1.0f;""", "y = alpha_ * x + 1")
+SINCOS = ("    %s\n    if (i < s_size) { s[i] = sinf(x[i]); c[i] = cosf(x[i]); }"
+          % _IDX, "s = torch.sin(x)\nc = torch.cos(x)")
+SCALE2 = ("    %s\n    if (i < y_size) y[i] = x[i] * 2.0f;" % _IDX,
+          "y = x * 2.0")
+TRANSPOSE = ("""
+    long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    long long r = (long long)blockIdx.y * blockDim.y + threadIdx.y;
+    if (r < x_shape[0] && c < x_shape[1])
+        y[c * y_shape[1] + r] = x[r * x_shape[1] + c];""", "y = x.t()")
+BF16 = ("    %s\n    if (i < y_size) y[i] = __float2bfloat16("
+        "__bfloat162float(x[i]) * 2.0f + 1.0f);" % _IDX,
+        "y = x.float() * 2.0 + 1.0")
+GELU = ("""
+    %s
+    if (i < y_size) {
+        float v = x[i];
+        y[i] = 0.5f * v * (1.0f + tanhf(0.7978845608028654f
+                                        * (v + 0.044715f * (v * v * v))));
+    }""" % _IDX,
+        "y = 0.5 * x * (1.0 + torch.tanh(0.7978845608028654"
+        " * (x + 0.044715 * (x * x * x))))")
+
+# the same GELU, four elements per thread through 16-byte loads and
+# stores: the body, not the launch path, sets what an elementwise rtc
+# kernel reaches, and wider accesses keep more bytes in flight per thread
+GELU_VEC4 = ("""
+    auto g = [](float v) {
+        return 0.5f * v * (1.0f + tanhf(0.7978845608028654f
+                                        * (v + 0.044715f * (v * v * v))));
+    };
+    long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    if (i + 3 < y_size) {
+        float4 v = reinterpret_cast<const float4*>(x)[i / 4];
+        reinterpret_cast<float4*>(y)[i / 4] =
+            make_float4(g(v.x), g(v.y), g(v.z), g(v.w));
+    } else {
+        for (; i < y_size; ++i) y[i] = g(x[i]);
+    }""", GELU[1])
+
+
+def vec4_dims(n):
+    """Launch dims of a GELU_VEC4 body over ``n`` elements."""
+    return dict(grid_dims=(-(-n // (4 * 256)), 1, 1), block_dims=(256, 1, 1))
+
+
+def rtc_pair(name, inputs, outputs, bodies):
+    """The same kernel in both languages, on the prototypes' device."""
+    cuda_body, torch_body = bodies
+    return (Rtc(name, inputs, outputs, cuda_body, language="cuda"),
+            Rtc(name, inputs, outputs, torch_body, language="torch"))
+
+
+def elementwise_bound(n_elems, n_arrays, ops_per_elem):
+    """Least time (ms) for an elementwise float32 pass, and what bounds
+    it: ``n_arrays`` arrays of ``n_elems`` floats read or written once,
+    over the memory rate; ``ops_per_elem`` float32 operations per
+    element over the CUDA cores' peak."""
+    t_bytes = n_arrays * n_elems * 4 / PEAK_BYTES_PER_S
+    t_ops = n_elems * ops_per_elem / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def _emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -125,7 +223,12 @@ def attention_bound(b, t_q, t_kv, h, d, causal, dtype):
 
 
 def cuda_ms(fn, warmup=3, iters=20):
-    """Median device time of one call (ms), by CUDA events around each."""
+    """Median device time of one call (ms), by CUDA events around each.
+
+    Before each call the stream spins for about a millisecond
+    (``torch.cuda._sleep``) while the host enqueues the events and the
+    call behind it, so the host's time to issue the call (tens of µs for
+    an rtc push) does not fall between the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -133,6 +236,7 @@ def cuda_ms(fn, warmup=3, iters=20):
     end = torch.cuda.Event(enable_timing=True)
     times = []
     for _ in range(iters):
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -164,6 +268,221 @@ def build_kernels():
     print(fa.LIBRARY.build_log, flush=True)
     _emit({"build_s": time.perf_counter() - t0,
            "nvcc_s": {fa.LIBRARY.name: fa.LIBRARY.build_seconds}})
+
+    version = mt.rtc.nvrtc_version()
+    x = mt.nd.ones((3, 4), ctx=mt.gpu())
+    a = mt.nd.ones((1,), ctx=mt.gpu())
+    y = mt.nd.zeros((3, 4), ctx=mt.gpu())
+    args = ("axpy", [("x", x), ("alpha_", a)], [("y", y)], AXPY[0])
+    t0 = time.perf_counter()
+    cold = Rtc(*args)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    cached_runs = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        cached = Rtc(*args)
+        cached_runs.append((time.perf_counter() - t0) * 1e3)
+        if cached.compile_ms is not None:
+            raise AssertionError("a second construction compiled again")
+    cached_ms = statistics.median(cached_runs)
+    if cold.compile_ms is None:
+        raise AssertionError("the first construction did not compile")
+    _emit({"nvrtc": "%d.%d" % version, "arch": mt.rtc.ARCH,
+           "rtc_cold_construct_ms": cold_ms,
+           "rtc_compile_ms": cold.compile_ms, "rtc_load_ms": cold.load_ms,
+           "rtc_cached_construct_ms": cached_ms})
+    return {"compile_ms": cold.compile_ms, "load_ms": cold.load_ms,
+            "cached_construct_ms": cached_ms, "nvrtc": "%d.%d" % version}
+
+
+def _push_checked(cuda, plain, ins, outs, refs, tol, **dims):
+    """Push ``cuda`` (counting one launch) and ``plain`` on the same
+    inputs; returns the largest error."""
+    before = Rtc.launches
+    cuda.push(ins, outs, **dims)
+    if Rtc.launches != before + 1:
+        raise AssertionError("rtc %s: %d launches for one push"
+                             % (cuda.name, Rtc.launches - before))
+    plain.push(ins, refs)
+    torch.cuda.synchronize()
+    err = 0.0
+    for o, r in zip(outs, refs):
+        o = o.data if isinstance(o, mt.nd.NDArray) else o
+        r = r.data if isinstance(r, mt.nd.NDArray) else r
+        err = max(err, (o.float() - r.float()).abs().max().item())
+        torch.testing.assert_close(o, r, check_dtype=False, **tol)
+    return err
+
+
+def check_rtc():
+    """Each cuda rtc kernel against its torch-language version."""
+    _phase("rtc check")
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def arr(*shape, dtype=torch.float32):
+        return mt.nd.NDArray(torch.randn(*shape, generator=g, device="cuda")
+                             .to(dtype))
+
+    f32 = RTC_TOL[torch.float32]
+    results = {}
+    x, a = arr(3, 4), arr(1)
+    y, ry = mt.nd.zeros((3, 4), ctx=mt.gpu()), mt.nd.zeros((3, 4),
+                                                           ctx=mt.gpu())
+    k = rtc_pair("axpy", [("x", x), ("alpha_", a)], [("y", y)], AXPY)
+    results["axpy"] = _push_checked(*k, [x, a], [y], [ry], f32)
+
+    x = mt.nd.NDArray(torch.arange(6, dtype=torch.float32, device="cuda"))
+    outs = [mt.nd.zeros((6,), ctx=mt.gpu()) for _ in range(4)]
+    # not "sincos": the name is the kernel's C symbol, and CUDA's math
+    # library has a sincos
+    k = rtc_pair("sin_cos", [("x", x)], [("s", outs[0]), ("c", outs[1])],
+                 SINCOS)
+    results["sincos"] = _push_checked(*k, [x], outs[:2], outs[2:], f32)
+
+    x = mt.nd.NDArray(torch.arange(64, dtype=torch.float32,
+                                   device="cuda").reshape(8, 8))
+    y, ry = mt.nd.zeros((8, 8), ctx=mt.gpu()), mt.nd.zeros((8, 8),
+                                                           ctx=mt.gpu())
+    scale2 = rtc_pair("scale2", [("x", x)], [("y", y)], SCALE2)
+    results["scale2"] = _push_checked(*scale2, [x], [y], [ry], f32)
+
+    # a push at other shapes compiles a second module, as jax.jit retraces
+    x5 = arr(5, 5)
+    y5, r5 = mt.nd.zeros((5, 5), ctx=mt.gpu()), mt.nd.zeros((5, 5),
+                                                            ctx=mt.gpu())
+    results["scale2_new_shape"] = _push_checked(*scale2, [x5], [y5], [r5],
+                                                f32)
+    if len(scale2[0]._functions) != 2:
+        raise AssertionError("a push at new shapes did not compile anew")
+
+    # explicit launch dims: a grid-stride loop over fewer threads than
+    # elements, and a 2-D grid that reads the shape constants
+    x, a = arr(1000, 37), arr(1)
+    y, ry = (mt.nd.zeros((1000, 37), ctx=mt.gpu()) for _ in range(2))
+    k = rtc_pair("axpy_strided", [("x", x), ("alpha_", a)], [("y", y)],
+                 AXPY_STRIDED)
+    results["grid_stride"] = _push_checked(
+        *k, [x, a], [y], [ry], f32, grid_dims=(7, 1, 1),
+        block_dims=(128, 1, 1))
+    x = arr(100, 37)
+    y, ry = (mt.nd.zeros((37, 100), ctx=mt.gpu()) for _ in range(2))
+    k = rtc_pair("transpose2d", [("x", x)], [("y", y)], TRANSPOSE)
+    results["grid_2d"] = _push_checked(*k, [x], [y], [ry], f32,
+                                       grid_dims=(3, 7, 1),
+                                       block_dims=(16, 16, 1))
+
+    x = arr(33, 65, dtype=torch.bfloat16)
+    y, ry = (mt.nd.zeros((33, 65), ctx=mt.gpu(), dtype="bfloat16")
+             for _ in range(2))
+    k = rtc_pair("affine_bf16", [("x", x)], [("y", y)], BF16)
+    results["bfloat16"] = _push_checked(*k, [x], [y], [ry],
+                                        RTC_TOL[torch.bfloat16])
+
+    # outputs written through a contiguous temporary: a strided view of
+    # a wider array (its other columns untouched), and another dtype
+    x = arr(16, 4)
+    base = mt.nd.zeros((16, 8), ctx=mt.gpu())
+    view = mt.nd.NDArray(base.data[:, 2:6])
+    ref = mt.nd.zeros((16, 4), ctx=mt.gpu())
+    k = rtc_pair("scale2", [("x", x)], [("y", ref)], SCALE2)
+    results["strided_view_output"] = _push_checked(*k, [x], [view], [ref],
+                                                   f32)
+    if base.data[:, :2].abs().sum().item() or \
+            base.data[:, 6:].abs().sum().item():
+        raise AssertionError("a strided output view wrote past its columns")
+    wide = mt.nd.zeros((16, 4), ctx=mt.gpu(), dtype="float64")
+    results["float64_output"] = _push_checked(*k, [x], [wide], [ref], f32)
+    _emit({"rtc_check": results})
+    return results
+
+
+def imperative_block(ctx, weights, x, gelu):
+    """One GPT-2-small block, x + Attn(LN(x)), then x + MLP(LN(x)),
+    from ``mt.nd`` calls on ``ctx``'s NDArrays; the GELU is ``gelu``, a
+    GELU_VEC4 rtc kernel."""
+    nd = mt.nd
+    b, t = BATCH, GPT2_SMALL["seq_len"]
+    c, h = GPT2_SMALL["num_hidden"], GPT2_SMALL["num_heads"]
+    w = weights
+    ln1 = nd.LayerNorm(x, w["ln1_gamma"], w["ln1_beta"])
+    qkv = nd.FullyConnected(ln1, w["qkv_weight"], w["qkv_bias"],
+                            num_hidden=3 * c)
+    qkv = nd.Reshape(qkv, shape=(b, t, 3, h, c // h))
+    q, k, v = (nd.Reshape(nd.slice_axis(qkv, axis=2, begin=i, end=i + 1),
+                          shape=(b, t, h, c // h)) for i in range(3))
+    att = nd._contrib_DotProductAttention(q, k, v, causal=True)
+    att = nd.Reshape(att, shape=(b * t, c))
+    x = x + nd.FullyConnected(att, w["proj_weight"], w["proj_bias"],
+                              num_hidden=c)
+    ln2 = nd.LayerNorm(x, w["ln2_gamma"], w["ln2_beta"])
+    hid = nd.FullyConnected(ln2, w["mlp1_weight"], w["mlp1_bias"],
+                            num_hidden=4 * c)
+    act = nd.empty(hid.shape, ctx=ctx)
+    gelu.push([hid], [act], **vec4_dims(hid.size))
+    return x + nd.FullyConnected(act, w["mlp2_weight"], w["mlp2_bias"],
+                                 num_hidden=c)
+
+
+def imperative():
+    """The imperative path: the block on the card, each kernel's launches
+    counted, held against its CPU run; returns (launches, the host ms of
+    one block, the largest error)."""
+    _phase("imperative")
+    rng = np.random.default_rng(SEED + 1)
+    c = GPT2_SMALL["num_hidden"]
+    shapes = {"ln1_gamma": (c,), "ln1_beta": (c,), "qkv_weight": (3 * c, c),
+              "qkv_bias": (3 * c,), "proj_weight": (c, c), "proj_bias": (c,),
+              "ln2_gamma": (c,), "ln2_beta": (c,),
+              "mlp1_weight": (4 * c, c), "mlp1_bias": (4 * c,),
+              "mlp2_weight": (c, 4 * c), "mlp2_bias": (c,)}
+    host = {n: (1.0 + rng.standard_normal(s, dtype=np.float32) * 0.1
+                if n.endswith("gamma")
+                else rng.standard_normal(s, dtype=np.float32) * 0.02)
+            for n, s in shapes.items()}
+    x_host = rng.standard_normal((BATCH * GPT2_SMALL["seq_len"], c),
+                                 dtype=np.float32)
+    runs = {}
+    for ctx, language in ((mt.gpu(), "cuda"), (mt.cpu(), "torch")):
+        with ctx:
+            weights = {n: mt.nd.array(v) for n, v in host.items()}
+            x = mt.nd.array(x_host)
+            proto = mt.nd.empty((x.shape[0], 4 * c))
+            gelu = Rtc("gelu_tanh_vec4", [("x", proto)], [("y", proto)],
+                       GELU_VEC4[0] if language == "cuda" else GELU_VEC4[1],
+                       language=language)
+            if language == "cuda":
+                fa.flash_attention_fwd.launches = 0
+                Rtc.launches = 0
+                out = imperative_block(ctx, weights, x, gelu)
+                mt.nd.waitall()
+                launches = {"flash_attention_fwd":
+                            fa.flash_attention_fwd.launches,
+                            "rtc": Rtc.launches}
+                times = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    imperative_block(ctx, weights, x, gelu).wait_to_read()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            else:
+                out = imperative_block(ctx, weights, x, gelu)
+            runs[language] = out.asnumpy()
+    if launches != {"flash_attention_fwd": 1, "rtc": 1}:
+        raise AssertionError("the imperative block launched %s, expected "
+                             "one of each kernel" % launches)
+    gpu, cpu = torch.from_numpy(runs["cuda"]), torch.from_numpy(runs["torch"])
+    if gpu.shape != (BATCH * GPT2_SMALL["seq_len"], c) or \
+            not torch.isfinite(gpu).all():
+        raise AssertionError("imperative block output %s, finite: %s"
+                             % (tuple(gpu.shape),
+                                bool(torch.isfinite(gpu).all())))
+    err = (gpu - cpu).abs().max().item()
+    block_ms = statistics.median(times)
+    _emit({"imperative": "gpt2-small block", "batch": BATCH,
+           "seq_len": GPT2_SMALL["seq_len"], "launches": launches,
+           "max_abs_err_vs_cpu": err, "max_abs": cpu.abs().max().item(),
+           "block_host_ms": block_ms, "block_host_ms_runs": times})
+    torch.testing.assert_close(gpu, cpu, **BLOCK_TOL)
+    return launches, block_ms, err
 
 
 def check_kernels():
@@ -242,6 +561,7 @@ def serve():
     t, vocab = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
 
     fa.flash_attention_fwd.launches = 0
+    Rtc.launches = 0
     latencies, first = [], None
     for ids in requests:
         before = fa.flash_attention_fwd.launches
@@ -264,7 +584,8 @@ def serve():
                                    torch.ones_like(probs[:, 0]),
                                    rtol=0, atol=1e-4)
         first = probs if first is None else first
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches}
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "rtc": Rtc.launches}
     _emit({"serve": "gpt2-small", "batch": BATCH, "seq_len": t,
            "requests": REQUESTS, "load_s": load_s,
            "latency_s": latencies, "launches": launches})
@@ -323,25 +644,114 @@ def times(latencies):
     return record
 
 
+def rtc_times():
+    """rtc kernels at size, their torch-language versions and the one
+    PyTorch call of the same function; the host cost of one push.
+    Returns the GELU's record."""
+    _phase("rtc times")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    records = {}
+
+    x = mt.nd.NDArray(torch.randn(AXPY_N, generator=g, device="cuda"))
+    a = mt.nd.NDArray(torch.full((1,), 0.75, device="cuda"))
+    y, ry = (mt.nd.empty((AXPY_N,), ctx=mt.gpu()) for _ in range(2))
+    one = torch.ones((), device="cuda")
+    cuda, plain = rtc_pair("axpy", [("x", x), ("alpha_", a)], [("y", y)],
+                           AXPY_STRIDED)
+    dims = dict(grid_dims=(sms * 8, 1, 1), block_dims=(256, 1, 1))
+    err = _push_checked(cuda, plain, [x, a], [y], [ry],
+                        RTC_TOL[torch.float32], **dims)
+    bound_ms, bound_by = elementwise_bound(AXPY_N, 2, 2)
+    records["axpy"] = {
+        "shape": [AXPY_N], "grid": dims["grid_dims"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: cuda.push([x, a], [y], **dims)),
+        "plain_ms": cuda_ms(lambda: plain.push([x, a], [ry])),
+        "library_ms": cuda_ms(lambda: torch.addcmul(one, a.data, x.data)),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    del x, y, ry
+
+    rows = BATCH * GPT2_SMALL["seq_len"]
+    cols = 4 * GPT2_SMALL["num_hidden"]
+    x = mt.nd.NDArray(torch.randn(rows, cols, generator=g, device="cuda"))
+    y, ry = (mt.nd.empty((rows, cols), ctx=mt.gpu()) for _ in range(2))
+    # the imperative block's GELU (GELU_VEC4), and the same body with one
+    # scalar element per thread beside it
+    scalar, plain = rtc_pair("gelu_tanh", [("x", x)], [("y", y)], GELU)
+    cuda = Rtc("gelu_tanh_vec4", [("x", x)], [("y", y)], GELU_VEC4[0])
+    dims = vec4_dims(rows * cols)
+    scalar_err = _push_checked(scalar, plain, [x], [y], [ry],
+                               RTC_TOL[torch.float32])
+    err = _push_checked(cuda, plain, [x], [y], [ry],
+                        RTC_TOL[torch.float32], **dims)
+    # 8 float operations and one tanh per element
+    bound_ms, bound_by = elementwise_bound(rows * cols, 2, 9)
+    records["gelu"] = {
+        "shape": [rows, cols], "body": "gelu_tanh_vec4", "max_abs_err": err,
+        "ms": cuda_ms(lambda: cuda.push([x], [y], **dims)),
+        "scalar_body_ms": cuda_ms(lambda: scalar.push([x], [y])),
+        "scalar_body_max_abs_err": scalar_err,
+        "plain_ms": cuda_ms(lambda: plain.push([x], [ry])),
+        "library_ms": cuda_ms(lambda: F.gelu(x.data, approximate="tanh")),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    del x, y, ry
+
+    x8 = mt.nd.NDArray(torch.randn(8, 8, generator=g, device="cuda"))
+    y8 = mt.nd.empty((8, 8), ctx=mt.gpu())
+    k = Rtc("scale2", [("x", x8)], [("y", y8)], SCALE2[0])
+    host_us = {}
+    for name, fn in (("rtc_push", lambda: k.push([x8], [y8])),
+                     ("torch_add", lambda: torch.add(x8.data, 1.0))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        host_us[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    records["host_us_per_call_8x8"] = host_us
+    for name, rec in records.items():
+        _emit({"rtc_times": name, **rec})
+    return records["gelu"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = environment()
-    build_kernels()
+    compile_record = build_kernels()
     serving_err = check_kernels()
+    check_rtc()
     launches, latencies = serve()
+    block_launches, _, _ = imperative()
     record = times(latencies)
+    gelu = rtc_times()
     _emit({"kernels": [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/op/pallas/flash_attention.py:38",
         "launches": launches["flash_attention_fwd"],
+        "launches_by_path": {
+            "serve": launches["flash_attention_fwd"],
+            "imperative": block_launches["flash_attention_fwd"]},
         "max_abs_err": serving_err,
         "ms": record["ms"], "plain_ms": record["plain_ms"],
         "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
         "library_ms": record["library_ms"], "dtype": "float32",
-        "card": card}]})
+        "card": card}, {
+        "name": "rtc_cuda", "route": "cuda",
+        "source": "mxnet_tpu_torch/rtc.py",
+        "replaces": "mxnet_tpu/rtc.py:84",
+        "launches": block_launches["rtc"],
+        "launches_by_path": {"serve": launches["rtc"],
+                             "imperative": block_launches["rtc"]},
+        "max_abs_err": gelu["max_abs_err"],
+        "ms": gelu["ms"], "plain_ms": gelu["plain_ms"],
+        "bound_ms": gelu["bound_ms"], "bound_by": gelu["bound_by"],
+        "library_ms": gelu["library_ms"], "dtype": "float32",
+        "body": gelu["body"], "shape": gelu["shape"],
+        "nvrtc": compile_record, "card": card}]})
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -2,16 +2,19 @@
 torch tensors inside, hand-written Hopper kernels where the JAX package
 has Pallas kernels.  It imports neither JAX nor ``mxnet_tpu``.
 
-This slice serves the transformer LM through :class:`Predictor`.
+It serves the transformer LM through :class:`Predictor`, and runs the
+imperative path: ``mx.nd`` NDArrays and the ops they reach, and
+``mx.rtc`` kernels compiled from CUDA C at runtime.
 """
 from . import base
-from .base import Context, MXNetError, cpu, gpu
+from .base import Context, MXNetError, cpu, gpu, current_context
 from . import name
 from . import attribute
 from .attribute import AttrScope
 from . import op
 from . import ndarray
 from . import ndarray as nd
+from . import random
 from . import symbol
 from . import symbol as sym
 from .symbol import Variable
@@ -21,3 +24,8 @@ from . import predictor
 from .predictor import Predictor
 from . import models
 from . import convert
+from . import rtc
+
+# sampling front-ends re-exported on mx.random (reference mxnet/random.py)
+for _sampler in ("uniform", "normal"):
+    setattr(random, _sampler, getattr(ndarray, _sampler))

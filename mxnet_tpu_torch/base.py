@@ -3,14 +3,20 @@
 The PyTorch counterpart of ``mxnet_tpu/base.py``.  A Context resolves to a
 ``torch.device``: ``gpu(i)`` is CUDA device ``i``, ``cpu()`` the host.
 Nothing falls back: a ``gpu`` Context on a machine without that CUDA
-device raises instead of quietly running on the CPU.
+device raises instead of quietly running on the CPU.  The default context
+is ``gpu(0)`` (the JAX package's falls back to the CPU); code that means
+the CPU says so with ``with mx.cpu():`` or ``ctx=mx.cpu()``.
 """
 from __future__ import annotations
+
+import re
+import threading
 
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "default_context",
+           "set_default_context", "current_context",
            "_DTYPE_TORCH_TO_MX", "_DTYPE_MX_TO_TORCH", "_dtype", "dtype_name"]
 
 
@@ -71,6 +77,8 @@ class Context:
 
     devtype2str = {1: "cpu", 2: "gpu"}
     devstr2type = {"cpu": 1, "gpu": 2}
+    # the context of the innermost ``with ctx:`` scope, per thread
+    _default_ctx = threading.local()
 
     def __init__(self, device_type, device_id=0):
         if isinstance(device_type, Context):
@@ -85,6 +93,7 @@ class Context:
                              % (device_type, sorted(Context.devstr2type)))
         self.device_typeid = Context.devstr2type[device_type]
         self.device_id = int(device_id)
+        self._old_ctx = None
 
     @property
     def device_type(self):
@@ -103,6 +112,31 @@ class Context:
 
     __repr__ = __str__
 
+    def __enter__(self):
+        self._old_ctx = getattr(Context._default_ctx, "value", None)
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        Context._default_ctx.value = self._old_ctx
+
+    @classmethod
+    def from_torch_device(cls, device: torch.device) -> "Context":
+        if device.type == "cuda":
+            return cls("gpu", device.index or 0)
+        return cls("cpu", 0)
+
+    @classmethod
+    def parse(cls, v) -> "Context":
+        """A Context from itself or its string form ``"gpu(1)"`` (an op's
+        ``ctx`` param)."""
+        if isinstance(v, Context):
+            return v
+        m = re.fullmatch(r"\s*(\w+)\((\d+)\)\s*", str(v))
+        if m is None:
+            raise MXNetError("cannot read a context from %r" % (v,))
+        return cls(m.group(1), int(m.group(2)))
+
     def torch_device(self) -> torch.device:
         """The ``torch.device`` this context names; raises when it names
         a CUDA device this process cannot see."""
@@ -110,8 +144,8 @@ class Context:
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
-                "%s requested but no CUDA device is available; pass "
-                "dev_type='cpu' to run on the CPU" % self)
+                "%s requested but no CUDA device is available; ask for the "
+                "CPU (mx.cpu(), dev_type='cpu') to run there" % self)
         n = torch.cuda.device_count()
         if self.device_id >= n:
             raise MXNetError("%s requested but only %d CUDA device(s) exist"
@@ -127,3 +161,25 @@ def cpu(device_id=0):
 def gpu(device_id=0):
     """Return a CUDA context (reference ``base.h:252``)."""
     return Context("gpu", device_id)
+
+
+def default_context() -> Context:
+    """The framework default, ``gpu(0)``, unless a ``with`` scope or
+    :func:`set_default_context` chose another.  There is no fallback to
+    the CPU: on a machine without CUDA, using it raises."""
+    override = getattr(Context._default_ctx, "value", None)
+    return override if override is not None else Context("gpu", 0)
+
+
+def set_default_context(ctx: Context):
+    """Set this thread's default context (reference
+    ``test_utils.py:34`` set_default_context)."""
+    Context._default_ctx.value = ctx
+
+
+def current_context() -> Context:
+    """The context of the innermost ``with mx.Context(...)`` scope."""
+    return default_context()
+
+
+Context.default_ctx = property(lambda self: current_context())

@@ -10,10 +10,14 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .ndarray import NDArray
+
 __all__ = ["params_from_mxnet_tpu"]
 
 
 def _tensor(arr) -> torch.Tensor:
+    if isinstance(arr, NDArray):
+        return arr.data.clone()
     a = np.array(arr, order="C")    # a writable host copy
     if a.dtype.name == "bfloat16":
         # numpy has no native bfloat16: move the bits through int16
@@ -26,8 +30,8 @@ def params_from_mxnet_tpu(arg_params: Dict, aux_params: Dict,
                           ) -> Tuple[Dict[str, torch.Tensor],
                                      Dict[str, torch.Tensor]]:
     """``(arg_params, aux_params)`` of numpy arrays (``NDArray.asnumpy()``
-    of the JAX package's) -> the same dicts of tensors on ``device``, in
-    the same dtypes."""
+    of the JAX package's) or of the port's NDArrays -> the same dicts of
+    tensors on ``device``, in the same dtypes."""
     device = torch.device(device)
     return ({k: _tensor(v).to(device) for k, v in arg_params.items()},
             {k: _tensor(v).to(device) for k, v in aux_params.items()})

@@ -11,6 +11,7 @@ from typing import Sequence
 
 import torch
 
+from . import random as _random
 from .op.registry import OpContext
 from .symbol import Symbol, _topo
 
@@ -33,7 +34,8 @@ class _GraphProgram:
               aux_vals: Sequence[torch.Tensor], device: torch.device):
         """Evaluate the graph in eval mode; returns the output tuple.
         ``device`` is where ops without tensor inputs create theirs."""
-        ctx = OpContext(is_train=False, device=device)
+        ctx = OpContext(is_train=False, device=device,
+                        rng=_random.generator(device))
         env = {}
         for n in self.nodes:
             if n.is_variable:

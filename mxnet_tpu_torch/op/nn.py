@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .elemwise import _softplus
 from .registry import Param, register, alias, get
 
 
@@ -46,7 +47,7 @@ _ACT = {
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
-    "softrelu": F.softplus,
+    "softrelu": _softplus,     # jax.nn.softplus: no threshold
     # jax.nn.gelu's default is the tanh approximation (GPT-2's gelu_new)
     "gelu": lambda a: F.gelu(a, approximate="tanh"),
 }

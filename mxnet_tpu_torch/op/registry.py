@@ -32,15 +32,19 @@ class OpContext:
 
     ``is_train`` selects mode-dependent behaviour (Dropout); this port
     runs the eval forward only.  ``device`` is where ops without tensor
-    inputs (``_arange``) create their output: the executor's device, or
-    ``meta`` during shape inference.
+    inputs (``_arange``, ``_zeros``) create their output: the executor's
+    device, the imperative call's context, or ``meta`` during shape
+    inference.  ``rng`` is that device's ``torch.Generator``, which ops
+    that declared ``uses_rng`` draw from (the reference's
+    ``ResourceRequest::kRandom``); None where nothing draws.
     """
 
-    __slots__ = ("is_train", "device")
+    __slots__ = ("is_train", "device", "rng")
 
-    def __init__(self, is_train=False, device=None):
+    def __init__(self, is_train=False, device=None, rng=None):
         self.is_train = is_train
         self.device = torch.device("cpu") if device is None else device
+        self.rng = rng
 
 
 def _parse_bool(v):
@@ -108,6 +112,7 @@ class Op:
     num_outputs: Any = 1  # int or callable(params) -> int
     infer_shape: Optional[Callable] = None  # (params, in_shapes) -> (in,out,aux)
     infer_dtype: Optional[Callable] = None
+    uses_rng: bool = False  # the body draws from ``OpContext.rng``
     hint: str = ""  # auto-naming hint, defaults to lowercased name
 
     def list_inputs(self, params) -> List[str]:

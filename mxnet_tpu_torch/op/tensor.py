@@ -1,4 +1,5 @@
-"""Shape/layout and indexing ops (``mxnet_tpu/op/tensor.py``).
+"""Shape/layout, linear algebra, reduction and indexing ops
+(``mxnet_tpu/op/tensor.py``).
 
 Reshape and slice_axis return views where torch can: the attention block
 slices q, k and v out of one fused projection, and the flash-attention
@@ -6,12 +7,25 @@ kernel reads those strided views directly.
 """
 from __future__ import annotations
 
+import ast
 import math
 
 import torch
 
 from ..base import MXNetError
 from .registry import Param, register, alias, get
+
+
+def _axis_param(name="axis", default=None, required=False):
+    def parse(v):
+        if v is None or v == "None" or v == "()":
+            return None
+        if isinstance(v, str):
+            v = ast.literal_eval(v)
+        if isinstance(v, (list, tuple)):
+            return tuple(int(x) for x in v)
+        return int(v)
+    return Param(name, parse, default, required=required)
 
 
 @register("Reshape", params_spec=(Param("shape", "shape", ()),
@@ -99,3 +113,187 @@ def _embedding_infer_dtype(p, in_dtypes):
 
 get("Embedding").infer_shape = _embedding_infer_shape
 get("Embedding").infer_dtype = _embedding_infer_dtype
+
+
+@register("Flatten", hint="flatten")
+def _flatten(p, c, a):
+    return a.reshape((a.shape[0], -1))
+
+
+alias("flatten", "Flatten")
+
+
+@register("transpose", params_spec=(_axis_param("axes", None),))
+def _transpose(p, c, a):
+    axes = p["axes"]
+    if isinstance(axes, int):
+        axes = (axes,)
+    return a.permute(axes if axes else tuple(reversed(range(a.ndim))))
+
+
+@register("expand_dims", params_spec=(Param("axis", int, required=True),))
+def _expand_dims(p, c, a):
+    return a.unsqueeze(p["axis"])
+
+
+@register("Concat", params_spec=(Param("num_args", int, required=True),
+                                 Param("dim", int, 1)),
+          input_names=lambda p: ["arg%d" % i for i in range(p["num_args"])],
+          hint="concat")
+def _concat(p, c, *xs):
+    return torch.cat(xs, dim=p["dim"])
+
+
+alias("concat", "Concat")
+
+
+@register("Cast", params_spec=(Param("dtype", "dtype", required=True),),
+          hint="cast")
+def _cast(p, c, a):
+    return a.to(p["dtype"])
+
+
+alias("cast", "Cast")
+
+
+@register("broadcast_to", params_spec=(Param("shape", "shape",
+                                             required=True),))
+def _broadcast_to(p, c, a):
+    return a.expand([s if s != 0 else a.shape[i]
+                     for i, s in enumerate(p["shape"])])
+
+
+# ----------------------------------------------------------------------
+# linear algebra: bfloat16 and float16 products accumulate and return in
+# float32, as the JAX op asks XLA for (``preferred_element_type``)
+_ACC = {torch.bfloat16: torch.float32, torch.float16: torch.float32}
+
+
+@register("dot", params_spec=(Param("transpose_a", bool, False),
+                              Param("transpose_b", bool, False)),
+          input_names=("lhs", "rhs"))
+def _dot(p, c, a, b):
+    if a.ndim == 1 and b.ndim == 1:
+        return torch.dot(a, b).reshape((1,))
+    if p["transpose_a"]:
+        a = a.T
+    if p["transpose_b"]:
+        b = b.T
+    acc = _ACC.get(a.dtype)
+    if acc is not None:
+        a, b = a.to(acc), b.to(acc)
+    return torch.tensordot(a, b, dims=1)
+
+
+@register("batch_dot", params_spec=(Param("transpose_a", bool, False),
+                                    Param("transpose_b", bool, False)),
+          input_names=("lhs", "rhs"))
+def _batch_dot(p, c, a, b):
+    if p["transpose_a"]:
+        a = a.transpose(-1, -2)
+    if p["transpose_b"]:
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
+
+
+# ----------------------------------------------------------------------
+# reductions: jax.numpy keeps an int array's dtype through sum and prod
+# (torch widens to int64) and gives float32 for an int mean
+def _prod(a, dims, keepdim):
+    for d in sorted(dims, reverse=True):
+        a = torch.prod(a, dim=d, keepdim=keepdim)
+    return a
+
+
+def _mean(a, dims, keepdim):
+    if not a.is_floating_point():
+        a = a.to(torch.float32)
+    return torch.mean(a, dim=dims, keepdim=keepdim)
+
+
+_REDUCERS = {
+    "sum": lambda a, d, k: torch.sum(a, dim=d, keepdim=k),
+    "mean": _mean,
+    "max": lambda a, d, k: torch.amax(a, dim=d, keepdim=k),
+    "min": lambda a, d, k: torch.amin(a, dim=d, keepdim=k),
+    "prod": _prod,
+    "nansum": lambda a, d, k: torch.nansum(a, dim=d, keepdim=k),
+    "nanprod": lambda a, d, k: _prod(
+        torch.where(torch.isnan(a), torch.ones_like(a), a), d, k),
+}
+
+
+def _reduce(fn, p, a):
+    ax = p["axis"]
+    dims = tuple(range(a.ndim)) if ax is None \
+        else (ax,) if isinstance(ax, int) else ax
+    dims = tuple(d % a.ndim for d in dims)
+    out = fn(a, dims, p["keepdims"])
+    if not a.is_floating_point() and not out.is_floating_point():
+        out = out.to(a.dtype)
+    if ax is None and not p["keepdims"]:
+        out = out.reshape((1,))  # reference: full reduce -> shape (1,)
+    return out
+
+
+for _name, _fn in _REDUCERS.items():
+    register(_name,
+             lambda p, c, a, _fn=_fn: _reduce(_fn, p, a),
+             params_spec=(_axis_param(), Param("keepdims", bool, False)))
+
+alias("sum_axis", "sum")
+alias("max_axis", "max")
+alias("min_axis", "min")
+
+
+@register("norm")
+def _norm(p, c, a):
+    return torch.sqrt(torch.sum(a * a)).reshape((1,))
+
+
+def _arg_reduce(fn, p, a):
+    ax = p["axis"]
+    if ax is None:   # over the flattened array, a 0-d result
+        return fn(a.reshape(-1), dim=0).to(a.dtype)
+    return fn(a, dim=ax, keepdim=p["keepdims"]).to(a.dtype)
+
+
+@register("argmax", params_spec=(_axis_param(), Param("keepdims", bool,
+                                                      False)))
+def _argmax(p, c, a):
+    return _arg_reduce(torch.argmax, p, a)
+
+
+@register("argmin", params_spec=(_axis_param(), Param("keepdims", bool,
+                                                      False)))
+def _argmin(p, c, a):
+    return _arg_reduce(torch.argmin, p, a)
+
+
+# ----------------------------------------------------------------------
+# indexing
+def one_hot(indices: torch.Tensor, depth: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: indices truncated to integers; an index
+    outside ``[0, depth)`` gives a row of zeros."""
+    classes = torch.arange(depth, device=indices.device)
+    return (indices.to(torch.int64).unsqueeze(-1) == classes).to(dtype)
+
+
+@register("one_hot", params_spec=(Param("depth", int, required=True),
+                                  Param("on_value", float, 1.0),
+                                  Param("off_value", float, 0.0),
+                                  Param("dtype", "dtype", torch.float32)),
+          input_names=("indices",))
+def _one_hot(p, c, indices):
+    oh = one_hot(indices, p["depth"], p["dtype"])
+    return oh * (p["on_value"] - p["off_value"]) + p["off_value"]
+
+
+@register("zeros_like")
+def _zeros_like(p, c, a):
+    return torch.zeros_like(a)
+
+
+@register("ones_like")
+def _ones_like(p, c, a):
+    return torch.ones_like(a)

@@ -24,9 +24,10 @@ __all__ = ["Predictor"]
 def _load_params_bytes(blob: bytes):
     """Parse a ``prefix-NNNN.params`` blob (reference
     ``c_predict_api.cc:87-117``): ``arg:``/``aux:`` prefixed names,
-    unprefixed names are args."""
+    unprefixed names are args.  Returns dicts of host tensors."""
     arg_params, aux_params = {}, {}
     for k, v in nd.load_buffer(blob).items():
+        v = v.data
         if k.startswith("aux:"):
             aux_params[k[4:]] = v
         else:

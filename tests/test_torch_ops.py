@@ -129,6 +129,133 @@ CASES = [
 ]
 
 
+def _signed(*shape):
+    # both signs, away from 0: divisors of mod and friends
+    return lambda rng: (rng.choice([-1.0, 1.0], shape)
+                        * rng.uniform(0.5, 3.0, shape)).astype(np.float32)
+
+
+def _between(lo, hi, *shape):
+    return lambda rng: rng.uniform(lo, hi, shape).astype(np.float32)
+
+
+def _fixed(values, dtype=np.float32):
+    return lambda rng: np.array(values, dtype)
+
+
+# halves round to even; negatives truncate toward 0; Γ < 0 on (-1, 0),
+# (-3, -2); cube roots of negatives are negative
+_EDGES = _fixed([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, -3.7, -0.2, 2.6, 7.0])
+_GAMMA_ARGS = _fixed([-2.5, -1.5, -0.5, 0.5, 1.5, 3.2, 4.0])
+_DOMAINS = {
+    "abs": _normal(3, 4), "sign": _fixed([-2.0, 0.0, 3.0]),
+    "rint": _EDGES, "round": _EDGES, "ceil": _EDGES, "floor": _EDGES,
+    "trunc": _EDGES, "fix": _EDGES, "square": _normal(3, 4),
+    "sqrt": _positive(3, 4), "rsqrt": _positive(3, 4), "cbrt": _EDGES,
+    "rcbrt": _signed(3, 4), "exp": _normal(3, 4), "log": _positive(3, 4),
+    "log10": _positive(3, 4), "log2": _positive(3, 4),
+    "log1p": _positive(3, 4), "expm1": _normal(3, 4), "sin": _normal(3, 4),
+    "cos": _normal(3, 4), "tan": _between(-1.2, 1.2, 3, 4),
+    "arcsin": _between(-0.99, 0.99, 3, 4),
+    "arccos": _between(-0.99, 0.99, 3, 4), "arctan": _normal(3, 4),
+    "sinh": _normal(3, 4), "cosh": _normal(3, 4), "tanh": _normal(3, 4),
+    "arcsinh": _normal(3, 4), "arccosh": _between(1.01, 4.0, 3, 4),
+    "arctanh": _between(-0.99, 0.99, 3, 4), "degrees": _normal(3, 4),
+    "radians": _normal(3, 4), "gamma": _GAMMA_ARGS, "gammaln": _GAMMA_ARGS,
+    "negative": _normal(3, 4), "reciprocal": _signed(3, 4),
+    "sigmoid": _normal(3, 4),
+    "softrelu": _fixed([-30.0, -2.0, 0.0, 1.5, 19.0, 25.0, 40.0]),
+    "erf": _normal(3, 4), "relu": _normal(3, 4), "identity": _normal(3, 4),
+    "_copy": _normal(3, 4),
+}
+_IDS = _fixed([[0, 2, 1, 7], [-1, 3, 1.9, 0]])
+_NAN = _fixed([[1.5, np.nan, 2.0], [np.nan, -0.5, 3.0]])
+
+CASES += [("unary_" + n, n, {}, [make]) for n, make in _DOMAINS.items()]
+for _n, _lhs, _rhs in (("mod", _signed(4, 5), _signed(4, 5)),
+                       ("maximum", _normal(4, 5), _normal(4, 5)),
+                       ("minimum", _normal(4, 5), _normal(4, 5)),
+                       ("hypot", _normal(4, 5), _normal(4, 5)),
+                       ("equal", _ints(4, 5), _ints(4, 5)),
+                       ("not_equal", _normal(4, 5), _normal(4, 5)),
+                       ("greater", _normal(4, 5), _normal(4, 5)),
+                       ("greater_equal", _ints(4, 5), _ints(4, 5)),
+                       ("lesser", _normal(4, 5), _normal(4, 5)),
+                       ("lesser_equal", _ints(4, 5), _ints(4, 5))):
+    CASES += [
+        (_n, "_" + _n, {}, [_lhs, _rhs]),
+        ("broadcast_" + _n, "broadcast_" + _n, {},
+         [_lhs, lambda rng, _rhs=_rhs: _rhs(rng)[:1]]),
+        (_n + "_scalar", "_%s_scalar" % _n, {"scalar": -1.5}, [_lhs]),
+    ]
+CASES += [
+    # the sign of a modulo follows the divisor, as in Python
+    ("mod_ints", "_mod", {}, [_ints(4, 5), _fixed([[3], [-3], [4], [-7]],
+                                                  np.int32)]),
+    ("mod_scalar_positive", "_mod_scalar", {"scalar": 2.5}, [_signed(3, 4)]),
+    ("rmod_scalar", "_rmod_scalar", {"scalar": 3.0}, [_signed(3, 4)]),
+    ("rpower_scalar_half", "_rpower_scalar", {"scalar": 0.5},
+     [_normal(3, 4)]),
+    ("clip", "clip", {"a_min": -0.5, "a_max": 0.7}, [_normal(3, 4)]),
+    ("smooth_l1", "smooth_l1", {"scalar": 2.0}, [_normal(3, 4)]),
+    ("add_n", "add_n", {"num_args": 3},
+     [_normal(3, 4), _normal(3, 4), _normal(3, 4)]),
+    ("add_n_alias_ElementWiseSum", "ElementWiseSum", {"num_args": 2},
+     [_normal(3, 4), _normal(3, 4)]),
+    ("flatten", "Flatten", {}, [_normal(2, 3, 4)]),
+    ("transpose_reverse", "transpose", {}, [_normal(2, 3, 4)]),
+    ("transpose_axes", "transpose", {"axes": "(1, 0, 2)"},
+     [_normal(2, 3, 4)]),
+    ("expand_dims", "expand_dims", {"axis": 1}, [_normal(2, 3)]),
+    ("concat", "Concat", {"num_args": 2, "dim": 1},
+     [_normal(2, 3), _normal(2, 5)]),
+    ("concat_alias_dim0", "concat", {"num_args": 2, "dim": 0},
+     [_normal(2, 3), _normal(1, 3)]),
+    ("cast_truncates", "Cast", {"dtype": "int32"}, [_EDGES]),
+    ("cast_alias", "cast", {"dtype": "float16"}, [_normal(3, 4)]),
+    ("broadcast_to", "broadcast_to", {"shape": (0, 3, 4)},
+     [_normal(2, 1, 4)]),
+    ("dot", "dot", {}, [_normal(3, 5), _normal(5, 4)]),
+    ("dot_transpose_b", "dot", {"transpose_b": True},
+     [_normal(3, 5), _normal(4, 5)]),
+    ("dot_vectors", "dot", {}, [_normal(6), _normal(6)]),
+    ("batch_dot_transpose_a", "batch_dot", {"transpose_a": True},
+     [_normal(2, 5, 3), _normal(2, 5, 4)]),
+    ("sum_all", "sum", {}, [_normal(3, 4, 2)]),
+    ("sum_axis_tuple_keepdims", "sum", {"axis": (0, 2), "keepdims": True},
+     [_normal(3, 4, 2)]),
+    ("sum_int_keeps_dtype", "sum", {"axis": 1}, [_ints(3, 4)]),
+    ("sum_axis_alias", "sum_axis", {"axis": -1}, [_normal(3, 4)]),
+    ("mean", "mean", {"axis": 1}, [_normal(3, 4)]),
+    ("mean_int_is_float", "mean", {}, [_ints(3, 4)]),
+    ("max", "max", {"axis": 0}, [_normal(3, 4)]),
+    ("max_axis_alias", "max_axis", {"axis": 1, "keepdims": True},
+     [_normal(3, 4)]),
+    ("min_all", "min", {}, [_normal(3, 4)]),
+    ("min_axis_alias", "min_axis", {"axis": "(0, 1)"}, [_normal(3, 4, 2)]),
+    ("prod_axes", "prod", {"axis": (0, 1)}, [_between(0.5, 1.5, 3, 4, 2)]),
+    ("prod_all", "prod", {}, [_between(0.5, 1.5, 3, 4)]),
+    ("nansum", "nansum", {"axis": 1}, [_NAN]),
+    ("nanprod", "nanprod", {}, [_NAN]),
+    ("norm", "norm", {}, [_normal(3, 4)]),
+    ("argmax_flat", "argmax", {}, [_normal(3, 4)]),
+    ("argmax_axis_keepdims", "argmax", {"axis": 1, "keepdims": True},
+     [_normal(3, 4)]),
+    ("argmin_axis", "argmin", {"axis": 0}, [_normal(3, 4)]),
+    # out-of-range ids give rows of zeros; 1.9 truncates to 1
+    ("one_hot", "one_hot", {"depth": 5, "on_value": 2.0,
+                            "off_value": -1.0}, [_IDS]),
+    ("one_hot_int_dtype", "one_hot", {"depth": 4, "dtype": "int32"},
+     [_IDS]),
+    ("zeros_like", "zeros_like", {}, [_ints(3, 4)]),
+    ("ones_like", "ones_like", {}, [_normal(3, 4)]),
+    # a dimension of 0 (unknown) is made 1
+    ("zeros_unknown_dim", "_zeros", {"shape": (2, 0, 3)}, []),
+    ("ones_alias_int", "ones", {"shape": (2, 3), "dtype": "int32"}, []),
+    ("full", "_full", {"shape": "(3, 2)", "value": 1.25}, []),
+]
+
+
 @pytest.mark.parametrize("name,params,makers",
                          [c[1:] for c in CASES], ids=[c[0] for c in CASES])
 def test_op_matches_mxnet_tpu(name, params, makers):

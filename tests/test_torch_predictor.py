@@ -136,4 +136,5 @@ def test_params_file_round_trips_between_packages(tmp_path):
     mx.nd.save(str(tmp_path / "j.params"), loaded)
     back = mt.nd.load(str(tmp_path / "j.params"))
     for k, v in tensors.items():
-        assert back[k].dtype == v.dtype and torch.equal(back[k], v)
+        assert isinstance(back[k], mt.nd.NDArray)
+        assert back[k].dtype == v.dtype and torch.equal(back[k].data, v)
