@@ -10,13 +10,16 @@ fails:
 
 1. environment: the card's name and power limit; TF32 off for matrix
    products and convolutions, so float32 means float32;
-2. build: every CUDA kernel of the serving path, from
-   ``mxnet_tpu_torch/csrc``, one nvcc per source, all at once; then one
-   ``mt.rtc`` kernel compiled by NVRTC cold, and again from the module
-   cache;
+2. build: every CUDA kernel of the port, from ``mxnet_tpu_torch/csrc``,
+   one nvcc per source, all at once, with each kernel's registers and
+   spills; the bfloat16 attention kernel's SASS must hold tensor-core
+   (``HGMMA``) and TMA (``UTMALDG``) instructions; then one ``mt.rtc``
+   kernel compiled by NVRTC cold, and again from the module cache;
 3. kernel check: each kernel against its plain PyTorch version on the
-   card, at the serving shapes and at ragged, cross-shaped and other
-   head-dim shapes, in float32 and bfloat16;
+   card, at the serving shapes and at ragged, cross-shaped, single-row
+   and other head-dim shapes, every case in float32 and bfloat16, with
+   the inputs the wrapper must copy first (head_dim 20 in bfloat16)
+   counted;
 4. rtc check: each ``language="cuda"`` rtc kernel against its
    ``language="torch"`` plain version on the card: ``tests/test_rtc.py``'s
    three cases, explicit grid and block dims, bfloat16, outputs that are
@@ -29,17 +32,22 @@ fails:
 6. imperative: one GPT-2-small block built only from ``mt.nd`` calls on
    ``mt.gpu()`` NDArrays at 4 x 1024 tokens, its GELU an ``mt.rtc``
    CUDA kernel, with each kernel's launches counted and the result held
-   against the same calls on ``mt.cpu()`` NDArrays;
+   against the same calls on ``mt.cpu()`` NDArrays; then one bfloat16
+   ``_contrib_DotProductAttention`` call on ``mt.gpu()`` NDArrays at the
+   serving shapes, which launches the bfloat16 kernel once;
 7. times: each kernel, its plain version and the PyTorch library call
-   that computes the same function, at the serving shapes; the
+   that computes the same function, at the serving shapes, the
+   attention kernel in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
    2^26 floats, the block's GELU) and the host cost of one push.
 
 The line before the last is one JSON object with a record per kernel;
 the last line names the device.
 """
+import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -83,22 +91,30 @@ LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 PROB_TOL = dict(rtol=1e-4, atol=1e-9)
 
-# (label, b, t_q, t_kv, h, d, causal, dtype); the first two are the
-# serving shapes, read through the strided views of one fused qkv tensor
-# as the attention block hands them to the kernel
+# (label, b, t_q, t_kv, h, d, causal), each run in both dtypes; the first
+# is the serving shapes.  Where t_q == t_kv, q, k and v are the strided
+# views of one fused qkv tensor, as the attention block hands them to the
+# kernel: with head_dim 20 a bfloat16 view's head stride is 40 bytes, which
+# TMA cannot describe, so the wrapper copies q, k and v once each
 CHECKS = [
-    ("serving", 4, 1024, 1024, 12, 64, True, torch.float32),
-    ("serving", 4, 1024, 1024, 12, 64, True, torch.bfloat16),
-    ("ragged", 3, 300, 451, 5, 64, False, torch.float32),
-    ("ragged", 3, 300, 451, 5, 64, False, torch.bfloat16),
-    ("causal_tq_lt_tkv", 2, 130, 320, 4, 64, True, torch.float32),
-    ("causal_tq_gt_tkv", 2, 320, 130, 4, 64, True, torch.float32),
-    ("head_dim_128", 2, 512, 512, 4, 128, True, torch.float32),
-    ("head_dim_128", 2, 512, 512, 4, 128, True, torch.bfloat16),
-    ("head_dim_16", 2, 100, 77, 3, 16, False, torch.float32),
-    ("head_dim_32", 2, 96, 96, 3, 32, True, torch.bfloat16),
-    ("head_dim_40_padded", 2, 65, 65, 2, 40, True, torch.float32),
+    ("serving", 4, 1024, 1024, 12, 64, True),
+    ("ragged", 3, 300, 451, 5, 64, False),
+    ("causal_tq_lt_tkv", 2, 130, 320, 4, 64, True),
+    ("causal_tq_gt_tkv", 2, 320, 130, 4, 64, True),
+    ("head_dim_128", 2, 512, 512, 4, 128, True),
+    ("head_dim_16", 2, 100, 77, 3, 16, False),
+    ("head_dim_32", 2, 96, 96, 3, 32, True),
+    ("head_dim_40_padded", 2, 65, 65, 2, 40, True),
+    ("head_dim_20_padded_copy", 2, 77, 77, 3, 20, True),
+    ("t_1_causal", 2, 1, 1, 3, 64, True),
 ]
+DTYPES = (torch.float32, torch.bfloat16)
+# inputs the wrapper copies before the launch, by (label, dtype); none
+# elsewhere
+COPIES = {("head_dim_20_padded_copy", torch.bfloat16): 3}
+# the attention kernel's source and C entry for each dtype
+K1_SOURCES = {torch.float32: "flash_attention_fwd_f32",
+              torch.bfloat16: "flash_attention_fwd_bf16"}
 
 
 # rtc kernel vs its torch-language version on the card: float32
@@ -261,13 +277,73 @@ def environment():
     return card
 
 
+def ptxas_report(log):
+    """{kernel symbol: {"registers": n, "spill_bytes": n}} from the
+    ``-Xptxas -v`` lines of an nvcc log."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            report[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def _cuobjdump():
+    """The CUDA toolkit's cuobjdump, else the copy in Triton's package."""
+    cand = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                         "bin", "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        for root in spec.submodule_search_locations:
+            cand.append(os.path.join(root, "backends", "nvidia", "bin",
+                                     "cuobjdump"))
+    for path in cand:
+        if os.access(path, os.X_OK):
+            return path
+    raise AssertionError("no cuobjdump in %s" % cand)
+
+
+def sass_counts(library, opcodes=("HGMMA", "UTMALDG", "SYNCS", "FFMA",
+                                  "LDGSTS", "MUFU.EX2")):
+    """How often each opcode occurs in the SASS of a built library."""
+    sass = subprocess.run([_cuobjdump(), "--dump-sass", str(library.path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     sass)
+    return {op: sum(1 for o in ops if o == op or o.startswith(op + "."))
+            for op in opcodes}
+
+
 def build_kernels():
     _phase("build")
     t0 = time.perf_counter()
-    build.build_all([fa.LIBRARY])
-    print(fa.LIBRARY.build_log, flush=True)
-    _emit({"build_s": time.perf_counter() - t0,
-           "nvcc_s": {fa.LIBRARY.name: fa.LIBRARY.build_seconds}})
+    build.build_all(fa.LIBRARIES)
+    build_s = time.perf_counter() - t0
+    for lib in fa.LIBRARIES:
+        print(lib.build_log, flush=True)
+    _emit({"build_s": build_s,
+           "nvcc_s": {lib.name: lib.build_seconds for lib in fa.LIBRARIES},
+           "ptxas": {lib.name: ptxas_report(lib.build_log)
+                     for lib in fa.LIBRARIES}})
+    sass = {lib.name: sass_counts(lib) for lib in fa.LIBRARIES}
+    _emit({"sass": sass})
+    bf16 = sass[K1_SOURCES[torch.bfloat16]]
+    if not bf16["HGMMA"] or not bf16["UTMALDG"]:
+        raise AssertionError("the bfloat16 attention kernel's SASS holds %d "
+                             "HGMMA and %d UTMALDG instructions"
+                             % (bf16["HGMMA"], bf16["UTMALDG"]))
 
     version = mt.rtc.nvrtc_version()
     x = mt.nd.ones((3, 4), ctx=mt.gpu())
@@ -451,12 +527,11 @@ def imperative():
                        GELU_VEC4[0] if language == "cuda" else GELU_VEC4[1],
                        language=language)
             if language == "cuda":
-                fa.flash_attention_fwd.launches = 0
+                fa.reset_counts()
                 Rtc.launches = 0
                 out = imperative_block(ctx, weights, x, gelu)
                 mt.nd.waitall()
-                launches = {"flash_attention_fwd":
-                            fa.flash_attention_fwd.launches,
+                launches = {**fa.flash_attention_fwd.kernel_launches,
                             "rtc": Rtc.launches}
                 times = []
                 for _ in range(5):
@@ -466,9 +541,11 @@ def imperative():
             else:
                 out = imperative_block(ctx, weights, x, gelu)
             runs[language] = out.asnumpy()
-    if launches != {"flash_attention_fwd": 1, "rtc": 1}:
+    expected = {K1_SOURCES[torch.float32]: 1,
+                K1_SOURCES[torch.bfloat16]: 0, "rtc": 1}
+    if launches != expected:
         raise AssertionError("the imperative block launched %s, expected "
-                             "one of each kernel" % launches)
+                             "%s" % (launches, expected))
     gpu, cpu = torch.from_numpy(runs["cuda"]), torch.from_numpy(runs["torch"])
     if gpu.shape != (BATCH * GPT2_SMALL["seq_len"], c) or \
             not torch.isfinite(gpu).all():
@@ -485,25 +562,82 @@ def imperative():
     return launches, block_ms, err
 
 
+def imperative_bf16():
+    """One bfloat16 ``_contrib_DotProductAttention`` call on ``mt.gpu()``
+    NDArrays at the serving shapes (the q, k, v of a block, cut from one
+    fused projection by ``slice_axis``), launching the bfloat16 kernel;
+    held against the plain version.  Returns the launches."""
+    _phase("imperative bfloat16 attention")
+    rng = np.random.default_rng(SEED + 2)
+    b, t, h = BATCH, GPT2_SMALL["seq_len"], GPT2_SMALL["num_heads"]
+    d = GPT2_SMALL["num_hidden"] // h
+    qkv = mt.nd.array(rng.standard_normal((b, t, 3, h, d), dtype=np.float32),
+                      ctx=mt.gpu(), dtype="bfloat16")
+    q, k, v = (mt.nd.Reshape(mt.nd.slice_axis(qkv, axis=2, begin=i,
+                                              end=i + 1), shape=(b, t, h, d))
+               for i in range(3))
+    mt.nd.waitall()
+    fa.reset_counts()
+    Rtc.launches = 0
+    out = mt.nd._contrib_DotProductAttention(q, k, v, causal=True)
+    mt.nd.waitall()
+    launches = {**fa.flash_attention_fwd.kernel_launches,
+                "rtc": Rtc.launches}
+    expected = {K1_SOURCES[torch.float32]: 0,
+                K1_SOURCES[torch.bfloat16]: 1, "rtc": 0}
+    if launches != expected or fa.flash_attention_fwd.padded_copies:
+        raise AssertionError("the bfloat16 attention call launched %s with "
+                             "%d copies, expected %s and none" % (
+                                 launches, fa.flash_attention_fwd.padded_copies,
+                                 expected))
+    ref, _ = fa.attention_reference(q.data, k.data, v.data, causal=True)
+    if out.dtype != torch.bfloat16 or out.shape != (b, t, h, d):
+        raise AssertionError("bfloat16 attention gave %s %s"
+                             % (out.dtype, out.shape))
+    err = (out.data.float() - ref.float()).abs().max().item()
+    _emit({"imperative_bf16": "_contrib_DotProductAttention",
+           "shape": [b, t, t, h, d], "launches": launches,
+           "max_abs_err": err})
+    torch.testing.assert_close(out.data.float(), ref.float(),
+                               **KERNEL_TOL[torch.bfloat16])
+    return launches
+
+
 def check_kernels():
-    """Hold the kernel against its plain version; returns the largest
-    float32 error on O at the serving shapes."""
+    """Hold each attention kernel against the plain version; returns the
+    largest error on O at the serving shapes, by dtype."""
     _phase("kernel check")
-    serving_err = None
-    for i, (label, b, t_q, t_kv, h, d, causal, dtype) in enumerate(CHECKS):
-        q, k, v = _qkv(b, t_q, t_kv, h, d, dtype, seed=i)
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        ro, rlse = fa.attention_reference(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = (o.float() - ro.float()).abs().max().item()
-        lse_err = (lse - rlse).abs().max().item()
-        _emit({"check": label, "shape": [b, t_q, t_kv, h, d],
-               "causal": causal, "dtype": str(dtype),
-               "max_abs_err": err, "lse_max_abs_err": lse_err})
-        torch.testing.assert_close(o.float(), ro.float(), **KERNEL_TOL[dtype])
-        torch.testing.assert_close(lse, rlse, **LSE_TOL)
-        if label == "serving" and dtype == torch.float32:
-            serving_err = err
+    serving_err = {}
+    for i, (label, b, t_q, t_kv, h, d, causal) in enumerate(CHECKS):
+        for dtype in DTYPES:
+            q, k, v = _qkv(b, t_q, t_kv, h, d, dtype, seed=i)
+            name, _ = fa.kernel_route(q, k, v)
+            fa.reset_counts()
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            counts = dict(fa.flash_attention_fwd.kernel_launches)
+            copies = fa.flash_attention_fwd.padded_copies
+            ro, rlse = fa.attention_reference(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = (o.float() - ro.float()).abs().max().item()
+            lse_err = (lse - rlse).abs().max().item()
+            _emit({"check": label, "shape": [b, t_q, t_kv, h, d],
+                   "causal": causal, "dtype": str(dtype), "kernel": name,
+                   "padded_copies": copies, "max_abs_err": err,
+                   "lse_max_abs_err": lse_err})
+            if name != K1_SOURCES[dtype] or counts[name] != 1 or \
+                    sum(counts.values()) != 1:
+                raise AssertionError("%s %s launched %s" % (label, dtype,
+                                                            counts))
+            if copies != COPIES.get((label, dtype), 0):
+                raise AssertionError("%s %s: the wrapper copied %d inputs, "
+                                     "expected %d" % (
+                                         label, dtype, copies,
+                                         COPIES.get((label, dtype), 0)))
+            torch.testing.assert_close(o.float(), ro.float(),
+                                       **KERNEL_TOL[dtype])
+            torch.testing.assert_close(lse, rlse, **LSE_TOL)
+            if label == "serving":
+                serving_err[dtype] = err
     return serving_err
 
 
@@ -560,7 +694,7 @@ def serve():
     symbol, pred, blob, load_s, requests = gpt2_small()
     t, vocab = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
 
-    fa.flash_attention_fwd.launches = 0
+    fa.reset_counts()
     Rtc.launches = 0
     latencies, first = [], None
     for ids in requests:
@@ -584,8 +718,13 @@ def serve():
                                    torch.ones_like(probs[:, 0]),
                                    rtol=0, atol=1e-4)
         first = probs if first is None else first
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+    launches = {**fa.flash_attention_fwd.kernel_launches,
                 "rtc": Rtc.launches}
+    expected = {K1_SOURCES[torch.float32]: GPT2_SMALL["num_layers"] * REQUESTS,
+                K1_SOURCES[torch.bfloat16]: 0, "rtc": 0}
+    if launches != expected:
+        raise AssertionError("serving launched %s, expected %s"
+                             % (launches, expected))
     _emit({"serve": "gpt2-small", "batch": BATCH, "seq_len": t,
            "requests": REQUESTS, "load_s": load_s,
            "latency_s": latencies, "launches": launches})
@@ -615,12 +754,12 @@ def serve():
 
 def times(latencies):
     """Kernel, plain and library times at the serving shapes; returns
-    the float32 kernel record's numbers."""
+    each attention kernel's record by dtype."""
     _phase("times")
     b, t, h = BATCH, GPT2_SMALL["seq_len"], GPT2_SMALL["num_heads"]
     d = GPT2_SMALL["num_hidden"] // h
-    record = None
-    for dtype in (torch.float32, torch.bfloat16):
+    records = {}
+    for dtype in DTYPES:
         q, k, v = _qkv(b, t, t, h, d, dtype, seed=100)
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
         plain_ms = cuda_ms(
@@ -629,19 +768,19 @@ def times(latencies):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True))
         bound_ms, bound_by = attention_bound(b, t, t, h, d, True, dtype)
-        line = {"kernel": "flash_attention_fwd", "dtype": str(dtype),
+        line = {"kernel": K1_SOURCES[dtype], "dtype": str(dtype),
                 "shape": [b, t, t, h, d], "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by}
+                "bound_by": bound_by, "x_library": ms / library_ms,
+                "share_of_bound": bound_ms / ms}
         _emit(line)
-        if dtype == torch.float32:
-            record = line
+        records[dtype] = line
     steady = statistics.median(latencies[1:])
     _emit({"predictor": "gpt2-small", "batch": BATCH, "seq_len": t,
            "steady_latency_s": steady, "requests_per_s": 1.0 / steady,
            "tokens_per_s": BATCH * t / steady,
            "first_request_s": latencies[0]})
-    return record
+    return records
 
 
 def rtc_times():
@@ -723,29 +862,39 @@ def main():
     compile_record = build_kernels()
     serving_err = check_kernels()
     check_rtc()
-    launches, latencies = serve()
-    block_launches, _, _ = imperative()
-    record = times(latencies)
+    paths = {}
+    paths["serve"], latencies = serve()
+    paths["imperative"], _, _ = imperative()
+    paths["imperative_bf16"] = imperative_bf16()
+    records = times(latencies)
     gelu = rtc_times()
-    _emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "mxnet_tpu/op/pallas/flash_attention.py:38",
-        "launches": launches["flash_attention_fwd"],
-        "launches_by_path": {
-            "serve": launches["flash_attention_fwd"],
-            "imperative": block_launches["flash_attention_fwd"]},
-        "max_abs_err": serving_err,
-        "ms": record["ms"], "plain_ms": record["plain_ms"],
-        "bound_ms": record["bound_ms"], "bound_by": record["bound_by"],
-        "library_ms": record["library_ms"], "dtype": "float32",
-        "card": card}, {
+    k1 = []
+    for dtype in DTYPES:
+        name, rec = K1_SOURCES[dtype], records[dtype]
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        # the path that carries this dtype: serving (float32) or the
+        # bfloat16 attention call
+        main_path = "serve" if dtype == torch.float32 else "imperative_bf16"
+        if not by_path[main_path]:
+            raise AssertionError("%s was not launched on its path: %s"
+                                 % (name, by_path))
+        k1.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/%s.cu" % name,
+            "replaces": "mxnet_tpu/op/pallas/flash_attention.py:38",
+            "launches": by_path[main_path], "launches_by_path": by_path,
+            "max_abs_err": serving_err[dtype],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "dtype": str(dtype),
+            "card": card})
+    _emit({"kernels": k1 + [{
         "name": "rtc_cuda", "route": "cuda",
         "source": "mxnet_tpu_torch/rtc.py",
         "replaces": "mxnet_tpu/rtc.py:84",
-        "launches": block_launches["rtc"],
-        "launches_by_path": {"serve": launches["rtc"],
-                             "imperative": block_launches["rtc"]},
+        "launches": paths["imperative"]["rtc"],
+        "launches_by_path": {path: counts["rtc"]
+                             for path, counts in paths.items()},
         "max_abs_err": gelu["max_abs_err"],
         "ms": gelu["ms"], "plain_ms": gelu["plain_ms"],
         "bound_ms": gelu["bound_ms"], "bound_by": gelu["bound_by"],

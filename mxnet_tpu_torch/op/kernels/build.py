@@ -41,14 +41,19 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One ``csrc/<name>.cu`` source, built and loaded at first use.
+    """One ``csrc/<name>.cu`` source (or another ``source`` path), built
+    and loaded at first use.
 
     ``declare(lib)`` sets the ``argtypes``/``restype`` of the library's
     C functions once, right after it is loaded."""
 
-    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, declare: Callable[[ctypes.CDLL], None],
+                 source: Path = None):
         self.name = name
+        self.source = Path(source) if source else CSRC / (name + ".cu")
         self._declare = declare
+        # the built shared library, once loaded
+        self.path = None
         # seconds nvcc took in this process; None when the library was
         # already built
         self.build_seconds = None
@@ -57,13 +62,14 @@ class CudaLibrary:
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = ctypes.CDLL(str(self._build()))
+            self.path = self._build()
+            lib = ctypes.CDLL(str(self.path))
             self._declare(lib)
             self._lib = lib
         return self._lib
 
     def _build(self) -> Path:
-        src = CSRC / (self.name + ".cu")
+        src = self.source
         digest = hashlib.sha256(
             src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         out = BUILD_DIR / ("lib%s-%s.so" % (self.name, digest))

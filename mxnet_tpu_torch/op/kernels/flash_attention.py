@@ -1,11 +1,18 @@
-"""Flash attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention forward: the hand-written CUDA kernels and their plain version.
 
 ``flash_attention_fwd`` is the port of the Pallas TPU kernel
 ``mxnet_tpu/op/pallas/flash_attention.py:_fwd_kernel`` (launched by
-``_fwd_impl``, wrapped by ``flash_attention``).  Its kernel is
-``mxnet_tpu_torch/csrc/flash_attention_fwd.cu``, built by ``nvcc`` at
-first use.  ``attention_reference`` is the plain PyTorch version of the
-same function: the port's copy of
+``_fwd_impl``, wrapped by ``flash_attention``).  The input dtype picks its
+kernel, each built by ``nvcc`` at first use:
+
+- bfloat16: ``mxnet_tpu_torch/csrc/flash_attention_fwd_bf16.cu``, on the
+  tensor cores (``wgmma``), fed by TMA through a ring of shared-memory
+  stages by a producer warp;
+- float32: ``mxnet_tpu_torch/csrc/flash_attention_fwd_f32.cu``, true
+  float32 products on the CUDA cores, with ``cp.async``-staged tiles.
+
+``attention_reference`` is the plain PyTorch version of the same
+function: the port's copy of
 ``mxnet_tpu/parallel/ring_attention.py:attention_reference``, extended
 to return the per-row logsumexp.
 
@@ -24,12 +31,14 @@ import torch
 from ...base import MXNetError
 from .build import CudaLibrary
 
-__all__ = ["flash_attention_fwd", "attention_reference", "LIBRARY"]
+__all__ = ["flash_attention_fwd", "attention_reference", "kernel_route",
+           "LIBRARIES"]
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-_BLOCK_M = 64            # query rows per block in the kernel
-_MAX_Q_TILES = 65535     # the kernel's grid limit on query tiles
+_MAX_Q_TILES = 65535     # the kernels' grid limit on query tiles
+# the copies and TMA read 16-byte vectors: base addresses and strides
+# must be multiples of this many bytes
+_ALIGN = 16
 
 
 def attention_reference(q, k, v, causal=False, scale=None):
@@ -64,45 +73,93 @@ def _check_shapes(q, k, v):
         raise MXNetError("flash attention: q, k, v on different devices")
 
 
-def _check_kernel_args(q, k, v):
-    """What the CUDA kernel takes beyond what the plain version does."""
-    if q.dtype not in _KERNEL_DTYPES or not q.dtype == k.dtype == v.dtype:
+def _declare(symbol):
+    def declare(lib):
+        fn = getattr(lib, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+    return declare
+
+
+class _Kernel:
+    """One CUDA source and its C entry, for one dtype."""
+
+    def __init__(self, name, block_m):
+        self.name = name
+        self.symbol = "mxtt_" + name
+        self.block_m = block_m      # query rows per block
+        self.library = CudaLibrary(name, _declare(self.symbol))
+
+
+_KERNELS = {
+    torch.bfloat16: _Kernel("flash_attention_fwd_bf16", block_m=128),
+    torch.float32: _Kernel("flash_attention_fwd_f32", block_m=64),
+}
+LIBRARIES = tuple(kern.library for kern in _KERNELS.values())
+
+
+def _needs_copy(x):
+    """Whether the kernels cannot read ``x`` in place: its base address or
+    the stride of a dimension longer than 1 is not a multiple of 16
+    bytes, or such a stride is 0."""
+    if x.data_ptr() % _ALIGN:
+        return True
+    size = x.element_size()
+    return any(n > 1 and (st <= 0 or st * size % _ALIGN)
+               for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def kernel_route(q, k, v):
+    """The kernel ``flash_attention_fwd`` launches for these inputs, and
+    which of q, k, v it first copies; raises on what no kernel takes.
+
+    Works on any device (meta tensors included), so the decision can be
+    checked without a card."""
+    kern = _KERNELS.get(q.dtype)
+    if kern is None or not q.dtype == k.dtype == v.dtype:
         raise MXNetError("flash attention kernel takes float32 or bfloat16 "
                          "q, k, v of one dtype; got %s, %s, %s"
                          % (q.dtype, k.dtype, v.dtype))
     if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
         raise MXNetError("flash attention kernel takes 1 <= head_dim <= %d;"
                          " got %d" % (MAX_HEAD_DIM, q.shape[-1]))
-    if -(-q.shape[1] // _BLOCK_M) > _MAX_Q_TILES:
+    if -(-q.shape[1] // kern.block_m) > _MAX_Q_TILES:
         raise MXNetError("flash attention kernel takes t_q <= %d; got %d"
-                         % (_MAX_Q_TILES * _BLOCK_M, q.shape[1]))
+                         % (_MAX_Q_TILES * kern.block_m, q.shape[1]))
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
             raise MXNetError("flash attention kernel needs %s's last "
                              "dimension contiguous; got strides %s"
                              % (name, x.stride()))
+    return kern.name, tuple(_needs_copy(x) for x in (q, k, v))
 
 
-def _declare(lib):
-    fn = lib.mxtt_flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
-
-
-LIBRARY = CudaLibrary("flash_attention_fwd", _declare)
+def _padded_copy(x):
+    """A contiguous copy of ``x`` with head_dim zero-padded to a multiple
+    of 8, so every stride is a multiple of 16 bytes in either dtype."""
+    d = x.shape[-1]
+    out = x.new_zeros(x.shape[:3] + (d + -d % 8,))
+    out[..., :d] = x
+    return out
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Exact attention forward; returns ``(o, lse)``.
 
-    CUDA tensors run the hand-written kernel, or raise: there is no
-    fallback.  CPU tensors run the plain version; meta tensors (shape
-    inference) get empty outputs of the right shape.
+    CUDA tensors run the hand-written kernel of their dtype (bfloat16 on
+    the tensor cores, float32 on the CUDA cores), or raise: there is no
+    fallback.  The kernels read 16-byte vectors, so an input whose base
+    address or strides are not multiples of 16 bytes (head_dim 20 in
+    bfloat16, for one) is first copied, once, into a contiguous buffer
+    with head_dim zero-padded to a multiple of 8; the kernel then reads
+    only its first head_dim columns.  That is a copy of the input, not a
+    fallback: the same kernel runs.  The strided q, k, v views of a fused
+    QKV projection need no copy.  CPU tensors run the plain version; meta
+    tensors (shape inference) get empty outputs of the right shape.
     """
     _check_shapes(q, k, v)
     b, t_q, h, d = q.shape
@@ -118,23 +175,36 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
     if q.device.type == "meta" or lse.numel() == 0:
         return o, lse
-    _check_kernel_args(q, k, v)
-    lib = LIBRARY.load()
+    name, copies = kernel_route(q, k, v)
+    q, k, v = (_padded_copy(x) if c else x for x, c in zip((q, k, v), copies))
+    kern = _KERNELS[q.dtype]
+    lib = kern.library.load()
     with torch.cuda.device(q.device):
-        err = lib.mxtt_flash_attention_fwd(
+        err = getattr(lib, kern.symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, t_q, t_kv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(bool(causal)), _KERNEL_DTYPES[q.dtype],
+            float(scale), int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise MXNetError("flash attention kernel launch failed: %s (CUDA "
-                         "error %d)"
-                         % (lib.mxtt_cuda_error_string(err).decode(), err))
+        raise MXNetError("flash attention kernel %s launch failed: %s "
+                         "(error %d)" % (name, lib.mxtt_cuda_error_string(
+                             err).decode(), err))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.kernel_launches[name] += 1
+    flash_attention_fwd.padded_copies += sum(copies)
     return o, lse
 
 
-# kernel launches since the count was last set to 0 (the plain version
-# and meta inference never count)
-flash_attention_fwd.launches = 0
+def reset_counts():
+    """Set every count of ``flash_attention_fwd`` to 0."""
+    flash_attention_fwd.launches = 0
+    flash_attention_fwd.kernel_launches = {
+        kern.name: 0 for kern in _KERNELS.values()}
+    flash_attention_fwd.padded_copies = 0
+
+
+# kernel launches since the counts were last set to 0, in all and by
+# kernel, and the inputs copied before a launch (the plain version and
+# meta inference never count)
+reset_counts()

@@ -30,7 +30,7 @@ import chip_smoke  # noqa: E402
 
 def _group(name):
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:
         return "flash_attention_fwd"
     if "gemm" in low or "xmma" in low or "cutlass" in low:
         return "matrix_products"
