@@ -19,7 +19,9 @@ fails:
    card, at the serving shapes and at ragged, cross-shaped, single-row
    and other head-dim shapes, every case in float32 and bfloat16, with
    the inputs the wrapper must copy first (head_dim 20 in bfloat16)
-   counted;
+   counted: the attention forward (K1) and its backward (B2), and in
+   float32 the gradients through ``FlashAttention`` (K1 then B2) against
+   torch autograd of the plain forward;
 4. rtc check: each ``language="cuda"`` rtc kernel against its
    ``language="torch"`` plain version on the card: ``tests/test_rtc.py``'s
    three cases, explicit grid and block dims, bfloat16, outputs that are
@@ -34,10 +36,18 @@ fails:
    CUDA kernel, with each kernel's launches counted and the result held
    against the same calls on ``mt.cpu()`` NDArrays; then one bfloat16
    ``_contrib_DotProductAttention`` call on ``mt.gpu()`` NDArrays at the
-   serving shapes, which launches the bfloat16 kernel once;
-7. times: each kernel, its plain version and the PyTorch library call
+   serving shapes, recorded by ``mt.autograd`` and backpropagated, which
+   launches the bfloat16 forward and backward kernels once each;
+7. train: ``Module.fit`` trains the LM at GPT-2 small's widths and full
+   depth on the card (Adam, batch 4 x 1024 tokens, TRAIN_EPOCHS epochs of
+   TRAIN_BATCHES batches of memorizable cyclic token sequences), with
+   12 forward and 12 backward attention launches asserted each step and
+   the perplexity asserted to fall; step time, tokens/s and peak device
+   memory; then one step's every parameter gradient held against the
+   port's CPU run of the same step (depth cut to 2 layers there);
+8. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
-   attention kernel in each dtype; the
+   attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
    2^26 floats, the block's GELU) and the host cost of one push.
 
@@ -46,6 +56,7 @@ the last line names the device.
 """
 import importlib.util
 import json
+import math
 import os
 import re
 import statistics
@@ -70,6 +81,23 @@ GPT2_SMALL = dict(seq_len=1024, num_hidden=768, num_heads=12, num_layers=12,
 BATCH = 4
 REQUESTS = 3
 SEED = 0
+# the train phase: Module.fit over TRAIN_EPOCHS passes of TRAIN_BATCHES
+# batches (the same batches each epoch), Adam at TRAIN_LR.  Each batch's
+# sequences cover token ids no other batch has, so the first pass learns
+# little that carries to its next batch; the later passes see again what
+# the model learned from
+TRAIN_EPOCHS = 3
+TRAIN_BATCHES = 4
+TRAIN_LR = 3e-4
+# the last epoch's perplexity must fall below the first's by this factor
+PPL_FALL = 2.0
+# the one-step gradient comparison with the port's CPU run: the same
+# widths and batch, depth cut to this many blocks on both sides (the CPU
+# side's time and memory), every parameter's gradient held by relative
+# norm.  float32 on both sides (TF32 off on the card), products and sums
+# in another order: ~1e-6 apart, while a wrong gradient is off by 1e-2
+CPU_LAYERS = 2
+GRAD_REL_TOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet; dense, at the full 700 W limit):
 # device memory, and arithmetic per dtype (float32 on the CUDA cores,
 # bfloat16 on the tensor cores)
@@ -84,6 +112,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 KERNEL_TOL = {torch.float32: dict(rtol=1e-4, atol=5e-5),
               torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}
 LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+# B2 vs its plain version on the same (q, k, v, o, lse, dO).  float32:
+# both accumulate seven products in float32 in another order; a gradient
+# of magnitude up to ~10 agrees to ~1e-5, while a wrong mask, scale or
+# delta is off by 1e-1 or more.  bfloat16: both round q*scale, P and dS to
+# bfloat16 at the same places and the outputs to bfloat16 (one ulp is
+# 2^-8 relative), but P comes from the card's exp2f and torch's exp, so a
+# few P or dS round the other way and an output may land one or two ulps
+# apart.
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=1.6e-2, atol=1.6e-2)}
 # GPU (kernels, cuBLAS without TF32) vs CPU (plain versions) float32
 # logits after 12 blocks: products and sums in another order.  A bfloat16
 # computation misses it: rounding the logits alone to bfloat16 breaks it,
@@ -115,6 +153,9 @@ COPIES = {("head_dim_20_padded_copy", torch.bfloat16): 3}
 # the attention kernel's source and C entry for each dtype
 K1_SOURCES = {torch.float32: "flash_attention_fwd_f32",
               torch.bfloat16: "flash_attention_fwd_bf16"}
+# the backward's kernel name for each dtype (one source for both)
+B2_NAMES = fa.BWD_NAMES
+B2_SOURCE = "flash_attention_bwd"
 
 
 # rtc kernel vs its torch-language version on the card: float32
@@ -223,16 +264,21 @@ def _qkv(b, t_q, t_kv, h, d, dtype, seed):
     return q, k, v
 
 
-def attention_bound(b, t_q, t_kv, h, d, causal, dtype):
-    """Least time (ms) the card could take for one attention forward, and
-    what bounds it: each of q, k, v read once and o, lse written once,
-    over the memory rate; the multiply-adds of the live (unmasked) score
-    entries, Q K^T and P V, over the dtype's peak."""
+def attention_bound(b, t_q, t_kv, h, d, causal, dtype, backward=False):
+    """Least time (ms) the card could take for one attention forward (or,
+    with ``backward``, one backward), and what bounds it.  Forward: each
+    of q, k, v read once and o, lse written once, over the memory rate;
+    the multiply-adds of the live (unmasked) score entries, Q K^T and
+    P V, over the dtype's peak.  Backward: q, k, v, o, dO and lse read
+    once and dQ, dK, dV written once; the five products of the live
+    entries (Q K^T, dO V^T, P^T dO, dS K, dS^T Q)."""
     live = sum(min(i + 1, t_kv) for i in range(t_q)) if causal \
         else t_q * t_kv
-    flops = 4 * d * live * b * h
+    flops = (10 if backward else 4) * d * live * b * h
     size = torch.empty((), dtype=dtype).element_size()
-    nbytes = (2 * b * t_q + 2 * b * t_kv) * h * d * size + b * h * t_q * 4
+    per_q, per_kv = (4, 4) if backward else (2, 2)
+    nbytes = (per_q * b * t_q + per_kv * b * t_kv) * h * d * size \
+        + b * h * t_q * 4
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -259,6 +305,28 @@ def cuda_ms(fn, warmup=3, iters=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launch_counts():
+    """Every kernel's launches since the counts were last set to 0, by
+    name: the attention forward (K1) and backward (B2) kernels, and rtc
+    pushes."""
+    return {**fa.flash_attention_fwd.kernel_launches,
+            **fa.flash_attention_bwd.kernel_launches, "rtc": Rtc.launches}
+
+
+def reset_launch_counts():
+    fa.reset_counts()
+    Rtc.launches = 0
+
+
+def expect_launches(path, launches, **nonzero):
+    """Raise unless ``launches`` holds exactly ``nonzero`` (by kernel
+    name) and 0 for every other kernel."""
+    expected = {name: nonzero.get(name, 0) for name in launches}
+    if launches != expected or set(nonzero) - set(launches):
+        raise AssertionError("%s launched %s, expected %s"
+                             % (path, launches, expected))
 
 
 def environment():
@@ -527,12 +595,10 @@ def imperative():
                        GELU_VEC4[0] if language == "cuda" else GELU_VEC4[1],
                        language=language)
             if language == "cuda":
-                fa.reset_counts()
-                Rtc.launches = 0
+                reset_launch_counts()
                 out = imperative_block(ctx, weights, x, gelu)
                 mt.nd.waitall()
-                launches = {**fa.flash_attention_fwd.kernel_launches,
-                            "rtc": Rtc.launches}
+                launches = launch_counts()
                 times = []
                 for _ in range(5):
                     t0 = time.perf_counter()
@@ -541,11 +607,8 @@ def imperative():
             else:
                 out = imperative_block(ctx, weights, x, gelu)
             runs[language] = out.asnumpy()
-    expected = {K1_SOURCES[torch.float32]: 1,
-                K1_SOURCES[torch.bfloat16]: 0, "rtc": 1}
-    if launches != expected:
-        raise AssertionError("the imperative block launched %s, expected "
-                             "%s" % (launches, expected))
+    expect_launches("the imperative block", launches,
+                    **{K1_SOURCES[torch.float32]: 1, "rtc": 1})
     gpu, cpu = torch.from_numpy(runs["cuda"]), torch.from_numpy(runs["torch"])
     if gpu.shape != (BATCH * GPT2_SMALL["seq_len"], c) or \
             not torch.isfinite(gpu).all():
@@ -565,8 +628,10 @@ def imperative():
 def imperative_bf16():
     """One bfloat16 ``_contrib_DotProductAttention`` call on ``mt.gpu()``
     NDArrays at the serving shapes (the q, k, v of a block, cut from one
-    fused projection by ``slice_axis``), launching the bfloat16 kernel;
-    held against the plain version.  Returns the launches."""
+    fused projection by ``slice_axis``), recorded by ``mt.autograd`` with
+    q, k, v marked, and backpropagated: it launches the bfloat16 forward
+    and backward kernels once each.  The output and the gradients are
+    held against the plain versions.  Returns the launches."""
     _phase("imperative bfloat16 attention")
     rng = np.random.default_rng(SEED + 2)
     b, t, h = BATCH, GPT2_SMALL["seq_len"], GPT2_SMALL["num_heads"]
@@ -576,38 +641,115 @@ def imperative_bf16():
     q, k, v = (mt.nd.Reshape(mt.nd.slice_axis(qkv, axis=2, begin=i,
                                               end=i + 1), shape=(b, t, h, d))
                for i in range(3))
+    for x in (q, k, v):
+        x.attach_grad()
     mt.nd.waitall()
-    fa.reset_counts()
-    Rtc.launches = 0
-    out = mt.nd._contrib_DotProductAttention(q, k, v, causal=True)
+    reset_launch_counts()
+    with mt.autograd.record():
+        out = mt.nd._contrib_DotProductAttention(q, k, v, causal=True)
+    out.backward()
     mt.nd.waitall()
-    launches = {**fa.flash_attention_fwd.kernel_launches,
-                "rtc": Rtc.launches}
-    expected = {K1_SOURCES[torch.float32]: 0,
-                K1_SOURCES[torch.bfloat16]: 1, "rtc": 0}
-    if launches != expected or fa.flash_attention_fwd.padded_copies:
-        raise AssertionError("the bfloat16 attention call launched %s with "
-                             "%d copies, expected %s and none" % (
-                                 launches, fa.flash_attention_fwd.padded_copies,
-                                 expected))
-    ref, _ = fa.attention_reference(q.data, k.data, v.data, causal=True)
+    launches = launch_counts()
+    copies = fa.flash_attention_fwd.padded_copies + fa.flash_attention_bwd.copies
+    expect_launches("the bfloat16 attention call", launches,
+                    **{K1_SOURCES[torch.bfloat16]: 1,
+                       B2_NAMES[torch.bfloat16]: 1})
+    if copies:
+        raise AssertionError("the bfloat16 attention call copied %d inputs"
+                             % copies)
     if out.dtype != torch.bfloat16 or out.shape != (b, t, h, d):
         raise AssertionError("bfloat16 attention gave %s %s"
                              % (out.dtype, out.shape))
+    with torch.no_grad():
+        ref, lse = fa.attention_reference(q.data, k.data, v.data,
+                                          causal=True)
+        # the backward's plain version on the kernel's own output (a
+        # missing head gradient is ones)
+        refs = fa.attention_bwd_reference(q.data, k.data, v.data, out.data,
+                                          lse, torch.ones_like(out.data),
+                                          causal=True)
+    grads = [x.grad.data for x in (q, k, v)]
     err = (out.data.float() - ref.float()).abs().max().item()
-    _emit({"imperative_bf16": "_contrib_DotProductAttention",
+    grad_err = [(g.float() - r.float()).abs().max().item()
+                for g, r in zip(grads, refs)]
+    _emit({"imperative_bf16": "_contrib_DotProductAttention + backward",
            "shape": [b, t, t, h, d], "launches": launches,
-           "max_abs_err": err})
+           "max_abs_err": err,
+           "grad_max_abs_err": dict(zip(("dq", "dk", "dv"), grad_err)),
+           "grad_max_abs": max(r.float().abs().max().item() for r in refs)})
     torch.testing.assert_close(out.data.float(), ref.float(),
                                **KERNEL_TOL[torch.bfloat16])
-    return launches
+    for g, r in zip(grads, refs):
+        if g.dtype != torch.bfloat16:
+            raise AssertionError("a bfloat16 gradient came back %s" % g.dtype)
+        torch.testing.assert_close(g.float(), r.float(),
+                                   **BWD_TOL[torch.bfloat16])
+    return launches, max(grad_err)
+
+
+def check_backward(label, q, k, v, o, lse, causal, seed):
+    """Hold B2 against its plain version on the same (q, k, v, o, lse,
+    dO); returns the largest error over dQ, dK, dV."""
+    dtype = q.dtype
+    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
+    fa.reset_counts()
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    counts = dict(fa.flash_attention_bwd.kernel_launches)
+    copies = fa.flash_attention_bwd.copies
+    refs = fa.attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    errs = [(x.float() - r.float()).abs().max().item()
+            for x, r in zip(grads, refs)]
+    _emit({"check_bwd": label, "shape": [q.shape[0], q.shape[1], k.shape[1],
+                                         q.shape[2], q.shape[3]],
+           "causal": causal, "dtype": str(dtype), "kernel": B2_NAMES[dtype],
+           "copies": copies, "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
+           "max_abs": max(r.float().abs().max().item() for r in refs)})
+    if counts[B2_NAMES[dtype]] != 1 or sum(counts.values()) != 1 or copies:
+        raise AssertionError("%s %s backward launched %s with %d copies"
+                             % (label, dtype, counts, copies))
+    for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
+        if x.dtype != dtype or x.shape != r.shape:
+            raise AssertionError("%s %s: %s is %s %s" % (
+                label, dtype, name, x.dtype, tuple(x.shape)))
+        torch.testing.assert_close(x.float(), r.float(), **BWD_TOL[dtype])
+    return max(errs)
+
+
+def check_autograd(label, q, k, v, causal, seed):
+    """Gradients through ``FlashAttention`` (K1 then B2) against torch
+    autograd of the plain forward, float32; returns the largest error."""
+    g = torch.Generator(device="cuda").manual_seed(2000 + seed)
+    do = torch.randn(q.shape, generator=g, device="cuda")
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    plain = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    fa.reset_counts()
+    fa.flash_attention(*leaves, causal, None).backward(do)
+    launches = (dict(fa.flash_attention_fwd.kernel_launches),
+                dict(fa.flash_attention_bwd.kernel_launches))
+    fa.attention_reference(*plain, causal=causal)[0].backward(do)
+    torch.cuda.synchronize()
+    if launches[0][K1_SOURCES[torch.float32]] != 1 or \
+            launches[1][B2_NAMES[torch.float32]] != 1:
+        raise AssertionError("FlashAttention %s launched %s" % (label,
+                                                                launches))
+    errs = [(x.grad - y.grad).abs().max().item()
+            for x, y in zip(leaves, plain)]
+    _emit({"check_autograd": label, "dtype": "torch.float32",
+           "max_abs_err": dict(zip(("dq", "dk", "dv"), errs))})
+    for x, y in zip(leaves, plain):
+        torch.testing.assert_close(x.grad, y.grad,
+                                   **BWD_TOL[torch.float32])
+    return max(errs)
 
 
 def check_kernels():
-    """Hold each attention kernel against the plain version; returns the
-    largest error on O at the serving shapes, by dtype."""
+    """Hold each attention kernel, forward (K1) and backward (B2), against
+    its plain version; returns the largest errors at the serving shapes,
+    ``({dtype: O error}, {dtype: gradient error})``."""
     _phase("kernel check")
-    serving_err = {}
+    serving_err, serving_bwd_err = {}, {}
     for i, (label, b, t_q, t_kv, h, d, causal) in enumerate(CHECKS):
         for dtype in DTYPES:
             q, k, v = _qkv(b, t_q, t_kv, h, d, dtype, seed=i)
@@ -636,9 +778,13 @@ def check_kernels():
             torch.testing.assert_close(o.float(), ro.float(),
                                        **KERNEL_TOL[dtype])
             torch.testing.assert_close(lse, rlse, **LSE_TOL)
+            bwd_err = check_backward(label, q, k, v, o, lse, causal, i)
+            if dtype == torch.float32:
+                check_autograd(label, q, k, v, causal, i)
             if label == "serving":
                 serving_err[dtype] = err
-    return serving_err
+                serving_bwd_err[dtype] = bwd_err
+    return serving_err, serving_bwd_err
 
 
 def _random_params(symbol, shapes, rng):
@@ -694,8 +840,7 @@ def serve():
     symbol, pred, blob, load_s, requests = gpt2_small()
     t, vocab = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
 
-    fa.reset_counts()
-    Rtc.launches = 0
+    reset_launch_counts()
     latencies, first = [], None
     for ids in requests:
         before = fa.flash_attention_fwd.launches
@@ -718,13 +863,9 @@ def serve():
                                    torch.ones_like(probs[:, 0]),
                                    rtol=0, atol=1e-4)
         first = probs if first is None else first
-    launches = {**fa.flash_attention_fwd.kernel_launches,
-                "rtc": Rtc.launches}
-    expected = {K1_SOURCES[torch.float32]: GPT2_SMALL["num_layers"] * REQUESTS,
-                K1_SOURCES[torch.bfloat16]: 0, "rtc": 0}
-    if launches != expected:
-        raise AssertionError("serving launched %s, expected %s"
-                             % (launches, expected))
+    launches = launch_counts()
+    expect_launches("serving", launches, **{
+        K1_SOURCES[torch.float32]: GPT2_SMALL["num_layers"] * REQUESTS})
     _emit({"serve": "gpt2-small", "batch": BATCH, "seq_len": t,
            "requests": REQUESTS, "load_s": load_s,
            "latency_s": latencies, "launches": launches})
@@ -752,9 +893,161 @@ def serve():
     return launches, latencies
 
 
+def cyclic_tokens(n, rng):
+    """``n`` memorizable sequences of seq_len + 1 tokens, each counting up
+    by one from a random start, modulo the vocabulary (the data of
+    ``tests/test_models.py::test_transformer_lm_learns``); returns the
+    inputs and the next tokens, float32 as NDArrayIter takes them."""
+    t, vocab = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
+    seqs = (rng.integers(0, vocab, n)[:, None] + np.arange(t + 1)) % vocab
+    return seqs[:, :t].astype(np.float32), seqs[:, 1:].astype(np.float32)
+
+
+TRAIN_INIT = dict(factor_type="in", magnitude=2.0)     # Xavier's
+
+
+def gpt2_train_cell():
+    """The trained cell: the LM at GPT-2 small's widths and full depth in
+    a Module on the card, bound, initialized (Xavier, from SEED) and with
+    Adam installed, and its NDArrayIter of TRAIN_BATCHES batches of
+    cyclic tokens.  Returns (module, iterator, the inputs, the labels,
+    set-up seconds)."""
+    X, Y = cyclic_tokens(BATCH * TRAIN_BATCHES,
+                         np.random.default_rng(SEED + 3))
+    symbol = mt.models.transformer.get_symbol(**GPT2_SMALL)
+    data = mt.io.NDArrayIter(X, Y, batch_size=BATCH)     # on the card
+    mod = mt.mod.Module(symbol, context=mt.gpu())
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.bind(data.provide_data, data.provide_label)
+    mod.init_params(mt.init.Xavier(**TRAIN_INIT))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": TRAIN_LR})
+    torch.cuda.synchronize()
+    return mod, data, X, Y, time.perf_counter() - t0
+
+
+def train():
+    """The training slice: ``Module.fit`` trains the LM at GPT-2 small's
+    widths and full depth on the card.  Asserts 12 K1 and 12 B2 launches
+    (float32) each step and a falling perplexity; returns (launches, the
+    step record)."""
+    _phase("train")
+    t, layers = GPT2_SMALL["seq_len"], GPT2_SMALL["num_layers"]
+    # bound and initialized ahead, so fit's first step is a step alone
+    mod, data, X, Y, setup_s = gpt2_train_cell()
+
+    steps = []
+    last = {}
+
+    def on_batch(param):
+        """Synchronise, then the step's time, perplexity and launches."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        m = param.eval_metric
+        total, count = m.sum_metric, m.num_inst      # since the epoch began
+        if param.nbatch == 0:
+            last.update(total=0.0, count=0)
+        counts = launch_counts()
+        steps.append({
+            "epoch": param.epoch, "s": now - last["t"],
+            "perplexity": math.exp((total - last["total"])
+                                   / (count - last["count"])),
+            "launches": {n: counts[n] - last["counts"][n] for n in counts}})
+        last.update(t=now, total=total, count=count, counts=counts)
+
+    metric = mt.metric.Perplexity(None)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    last.update(t=time.perf_counter(), counts=launch_counts())
+    mod.fit(data, num_epoch=TRAIN_EPOCHS, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mt.init.Xavier(**TRAIN_INIT), eval_metric=metric,
+            batch_end_callback=on_batch)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
+    expect_launches("training", launches, **{
+        K1_SOURCES[torch.float32]: layers * n_steps,
+        B2_NAMES[torch.float32]: layers * n_steps})
+    for i, step in enumerate(steps):
+        if step["launches"][K1_SOURCES[torch.float32]] != layers or \
+                step["launches"][B2_NAMES[torch.float32]] != layers:
+            raise AssertionError("step %d launched %s" % (i, step["launches"]))
+    per_epoch = [math.exp(statistics.fmean(
+        math.log(s["perplexity"]) for s in steps if s["epoch"] == e))
+        for e in range(TRAIN_EPOCHS)]
+    step_s = statistics.median(s["s"] for s in steps[1:])
+    record = {"train": "gpt2-small", "batch": BATCH, "seq_len": t,
+              "layers": layers, "steps": n_steps, "optimizer": "adam",
+              "lr": TRAIN_LR, "setup_s": setup_s,
+              "first_step_s": steps[0]["s"], "step_s": step_s,
+              "step_s_runs": [s["s"] for s in steps],
+              "tokens_per_s": BATCH * t / step_s,
+              "peak_memory_bytes": peak,
+              "perplexity_by_step": [s["perplexity"] for s in steps],
+              "perplexity_by_epoch": per_epoch, "launches": launches}
+    _emit(record)
+    if len(steps) != n_steps or not all(
+            math.isfinite(p) for p in record["perplexity_by_step"]):
+        raise AssertionError("training gave %s" % record)
+    if not per_epoch[-1] * PPL_FALL < per_epoch[0]:
+        raise AssertionError("perplexity fell from %g to %g, not by %gx"
+                             % (per_epoch[0], per_epoch[-1], PPL_FALL))
+    del mod, data
+    record["max_grad_rel_err"] = train_step_vs_cpu(X[:BATCH], Y[:BATCH])
+    return launches, record
+
+
+def train_step_vs_cpu(x, y):
+    """One training step's gradients on the card against the port's CPU
+    run of the same step, at GPT-2 small's widths and batch with the
+    depth cut to CPU_LAYERS on both sides; returns the largest relative
+    error."""
+    t = GPT2_SMALL["seq_len"]
+    symbol = mt.models.transformer.get_symbol(
+        **dict(GPT2_SMALL, num_layers=CPU_LAYERS))
+    shapes, _, _ = symbol.infer_shape(data=(BATCH, t),
+                                      softmax_label=(BATCH, t))
+    params = _random_params(symbol, shapes, np.random.default_rng(SEED + 4))
+    req = {n: "write" if n in params else "null"
+           for n in symbol.list_arguments()}
+    grads, secs = [], {}
+    for ctx in (mt.gpu(), mt.cpu()):
+        exe = symbol.simple_bind(ctx, grad_req=req, data=(BATCH, t),
+                                 softmax_label=(BATCH, t))
+        exe.copy_params_from({n: mt.nd.NDArray(v) for n, v in params.items()})
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        exe.forward(is_train=True, data=x, softmax_label=y)
+        exe.backward()
+        mt.nd.waitall()
+        secs[str(ctx)] = time.perf_counter() - t0
+        if ctx.device_type == "gpu":
+            expect_launches("the compared step", launch_counts(), **{
+                K1_SOURCES[torch.float32]: CPU_LAYERS,
+                B2_NAMES[torch.float32]: CPU_LAYERS})
+        grads.append({n: exe.grad_dict[n].data.cpu() for n in params})
+        del exe
+    card, host = grads
+    rel = {n: ((card[n] - host[n]).norm() / host[n].norm()).item()
+           for n in params}
+    worst = max(rel, key=rel.get)
+    _emit({"train_step_vs_cpu": "gpt2-small widths", "layers": CPU_LAYERS,
+           "batch": BATCH, "seq_len": t, "grad_rel_err_max": rel[worst],
+           "worst": worst, "grad_rel_err": rel, "seconds": secs})
+    if not all(math.isfinite(r) and r < GRAD_REL_TOL for r in rel.values()):
+        raise AssertionError("gradients on the card and the CPU differ: %s "
+                             "%g (tolerance %g)" % (worst, rel[worst],
+                                                    GRAD_REL_TOL))
+    return rel[worst]
+
+
 def times(latencies):
     """Kernel, plain and library times at the serving shapes; returns
-    each attention kernel's record by dtype."""
+    each attention kernel's record by (kernel, dtype), the kernels "K1"
+    and "B2"."""
     _phase("times")
     b, t, h = BATCH, GPT2_SMALL["seq_len"], GPT2_SMALL["num_heads"]
     d = GPT2_SMALL["num_hidden"] // h
@@ -774,7 +1067,32 @@ def times(latencies):
                 "bound_by": bound_by, "x_library": ms / library_ms,
                 "share_of_bound": bound_ms / ms}
         _emit(line)
-        records[dtype] = line
+        records["K1", dtype] = line
+
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        g = torch.Generator(device="cuda").manual_seed(101)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
+        ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal=True))
+        plain_ms = cuda_ms(lambda: fa.attention_bwd_reference(
+            q, k, v, o, lse, do, causal=True))
+        # SDPA's backward alone: its forward once, then the gradients
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        do_t = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do_t, retain_graph=True))
+        bound_ms, bound_by = attention_bound(b, t, t, h, d, True, dtype,
+                                             backward=True)
+        line = {"kernel": B2_NAMES[dtype], "dtype": str(dtype),
+                "shape": [b, t, t, h, d], "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "x_library": ms / library_ms,
+                "share_of_bound": bound_ms / ms}
+        _emit(line)
+        records["B2", dtype] = line
+        del out, leaves
     steady = statistics.median(latencies[1:])
     _emit({"predictor": "gpt2-small", "batch": BATCH, "seq_len": t,
            "steady_latency_s": steady, "requests_per_s": 1.0 / steady,
@@ -854,53 +1172,57 @@ def rtc_times():
     return records["gelu"]
 
 
+def _kernel_line(name, source, replaces, rec, paths, main_path, err, card,
+                 dtype):
+    by_path = {path: counts[name] for path, counts in paths.items()}
+    if not by_path[main_path]:
+        raise AssertionError("%s was not launched on its path: %s"
+                             % (name, by_path))
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": by_path[main_path],
+            "launches_by_path": by_path, "main_path": main_path,
+            "max_abs_err": err, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "dtype": dtype, "card": card}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = environment()
     compile_record = build_kernels()
-    serving_err = check_kernels()
+    serving_err, serving_bwd_err = check_kernels()
     check_rtc()
     paths = {}
     paths["serve"], latencies = serve()
     paths["imperative"], _, _ = imperative()
-    paths["imperative_bf16"] = imperative_bf16()
+    paths["imperative_bf16"], _ = imperative_bf16()
+    paths["train"], _ = train()
     records = times(latencies)
     gelu = rtc_times()
-    k1 = []
+    lines = []
     for dtype in DTYPES:
-        name, rec = K1_SOURCES[dtype], records[dtype]
-        by_path = {path: counts[name] for path, counts in paths.items()}
-        # the path that carries this dtype: serving (float32) or the
-        # bfloat16 attention call
-        main_path = "serve" if dtype == torch.float32 else "imperative_bf16"
-        if not by_path[main_path]:
-            raise AssertionError("%s was not launched on its path: %s"
-                                 % (name, by_path))
-        k1.append({
-            "name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/%s.cu" % name,
-            "replaces": "mxnet_tpu/op/pallas/flash_attention.py:38",
-            "launches": by_path[main_path], "launches_by_path": by_path,
-            "max_abs_err": serving_err[dtype],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "dtype": str(dtype),
-            "card": card})
-    _emit({"kernels": k1 + [{
-        "name": "rtc_cuda", "route": "cuda",
-        "source": "mxnet_tpu_torch/rtc.py",
-        "replaces": "mxnet_tpu/rtc.py:84",
-        "launches": paths["imperative"]["rtc"],
-        "launches_by_path": {path: counts["rtc"]
-                             for path, counts in paths.items()},
-        "max_abs_err": gelu["max_abs_err"],
-        "ms": gelu["ms"], "plain_ms": gelu["plain_ms"],
-        "bound_ms": gelu["bound_ms"], "bound_by": gelu["bound_by"],
-        "library_ms": gelu["library_ms"], "dtype": "float32",
-        "body": gelu["body"], "shape": gelu["shape"],
-        "nvrtc": compile_record, "card": card}]})
+        # the path that carries each kernel of this dtype: serving and
+        # training (float32), the bfloat16 attention call
+        f32 = dtype == torch.float32
+        lines.append(_kernel_line(
+            K1_SOURCES[dtype], "mxnet_tpu_torch/csrc/%s.cu" % K1_SOURCES[dtype],
+            "mxnet_tpu/op/pallas/flash_attention.py:38", records["K1", dtype],
+            paths, "serve" if f32 else "imperative_bf16",
+            serving_err[dtype], card, str(dtype)))
+        lines.append(_kernel_line(
+            B2_NAMES[dtype], "mxnet_tpu_torch/csrc/%s.cu" % B2_SOURCE,
+            "mxnet_tpu/op/pallas/flash_attention.py:165",
+            records["B2", dtype], paths,
+            "train" if f32 else "imperative_bf16", serving_bwd_err[dtype],
+            card, str(dtype)))
+    rtc = _kernel_line("rtc", "mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:84",
+                       gelu, paths, "imperative", gelu["max_abs_err"], card,
+                       "float32")
+    rtc.update(name="rtc_cuda", body=gelu["body"], shape=gelu["shape"],
+               nvrtc=compile_record)
+    _emit({"kernels": lines + [rtc]})
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

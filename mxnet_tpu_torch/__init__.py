@@ -2,9 +2,10 @@
 torch tensors inside, hand-written Hopper kernels where the JAX package
 has Pallas kernels.  It imports neither JAX nor ``mxnet_tpu``.
 
-It serves the transformer LM through :class:`Predictor`, and runs the
-imperative path: ``mx.nd`` NDArrays and the ops they reach, and
-``mx.rtc`` kernels compiled from CUDA C at runtime.
+It serves the transformer LM through :class:`Predictor`, trains it
+through ``mx.mod.Module.fit`` (the classic executor path), and runs the
+imperative path: ``mx.nd`` NDArrays and the ops they reach, recorded by
+``mx.autograd``, and ``mx.rtc`` kernels compiled from CUDA C at runtime.
 """
 from . import base
 from .base import Context, MXNetError, cpu, gpu, current_context
@@ -19,6 +20,16 @@ from . import symbol
 from . import symbol as sym
 from .symbol import Variable
 from . import executor
+from . import autograd
+from . import initializer
+from . import initializer as init
+from . import lr_scheduler
+from . import optimizer
+from . import metric
+from . import io
+from . import model
+from . import module
+from . import module as mod
 from . import serving
 from . import predictor
 from .predictor import Predictor

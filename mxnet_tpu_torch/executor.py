@@ -1,21 +1,28 @@
-"""Graph evaluation (``mxnet_tpu/executor.py:_GraphProgram``), eval
-forward only.
+"""Graph executor (``mxnet_tpu/executor.py``).
 
-The JAX package traces the graph walk into one jitted XLA program; here
-the walk runs eagerly, each node's op body launching its kernels as it
-goes.  There is no jit and no program cache.
+The JAX package traces the graph walk into one jitted XLA program and
+differentiates it with ``jax.vjp``; here the walk runs eagerly, each
+node's op body launching its kernels as it goes, and a training forward
+records the walk on torch autograd: the arguments that want a gradient
+become leaf tensors, and ``backward`` asks autograd for their gradients
+(``torch.autograd.grad``), through the ops' own backward formulas and
+the injected gradients of the loss layers.  There is no jit and no
+program cache.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import random as _random
+from .base import MXNetError, current_context
+from .ndarray import NDArray, zeros
 from .op.registry import OpContext
 from .symbol import Symbol, _topo
 
-__all__ = ["_GraphProgram"]
+__all__ = ["Executor", "bind", "simple_bind"]
 
 
 class _GraphProgram:
@@ -31,20 +38,206 @@ class _GraphProgram:
         self._aux_index = {n: i for i, n in enumerate(self.aux_names)}
 
     def _eval(self, arg_vals: Sequence[torch.Tensor],
-              aux_vals: Sequence[torch.Tensor], device: torch.device):
-        """Evaluate the graph in eval mode; returns the output tuple.
-        ``device`` is where ops without tensor inputs create theirs."""
-        ctx = OpContext(is_train=False, device=device,
+              aux_vals: Sequence[torch.Tensor], device: torch.device,
+              is_train=False):
+        """Evaluate the graph; returns ``(outputs, aux_states)``, the aux
+        states as the ops updated them.  ``device`` is where ops without
+        tensor inputs create theirs.  In training, op bodies run under
+        torch autograd wherever an input requires a gradient."""
+        ctx = OpContext(is_train=is_train, device=device,
                         rng=_random.generator(device))
         env = {}
+        aux_out = list(aux_vals)
         for n in self.nodes:
             if n.is_variable:
                 env[(id(n), 0)] = arg_vals[self._arg_index[n.name]]
                 continue
             in_vals = [env[(id(c), i)] for c, i in n.inputs]
-            node_aux = [aux_vals[self._aux_index["%s_%s" % (n.name, a)]]
-                        for a in n.aux_names()]
-            outs, _ = n.op.apply(n.params, ctx, *(in_vals + node_aux))
+            slots = [self._aux_index["%s_%s" % (n.name, a)]
+                     for a in n.aux_names()]
+            node_aux = [aux_vals[s].detach() for s in slots]
+            outs, aux_updates = n.op.apply(n.params, ctx,
+                                           *(in_vals + node_aux))
             for i, v in enumerate(outs):
                 env[(id(n), i)] = v
-        return tuple(env[(id(nd), i)] for nd, i in self.output_entries)
+            for s, v in zip(slots, aux_updates):
+                aux_out[s] = v.detach()
+        outputs = tuple(env[(id(nd), i)] for nd, i in self.output_entries)
+        return outputs, tuple(aux_out)
+
+
+def _normalize_grad_req(grad_req, arg_names):
+    if isinstance(grad_req, str):
+        return {n: grad_req for n in arg_names}
+    if isinstance(grad_req, (list, tuple)):
+        return dict(zip(arg_names, grad_req))
+    if isinstance(grad_req, dict):
+        return {n: grad_req.get(n, "null") for n in arg_names}
+    raise MXNetError("invalid grad_req %r" % (grad_req,))
+
+
+def _as_tensor(value, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(value, NDArray):
+        value = value.data
+    elif not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(np.ascontiguousarray(value))
+    return value.to(device=like.device, dtype=like.dtype)
+
+
+class Executor:
+    """Bound executor (reference ``include/mxnet/executor.h:34-102``):
+    NDArrays for every argument, gradient and aux state of a symbol, a
+    forward that fills ``outputs``, and a backward that fills the
+    gradient arrays per ``grad_req`` (``write``, ``add`` or ``null``)."""
+
+    def __init__(self, sym: Symbol, ctx, args: Dict[str, NDArray],
+                 args_grad: Optional[Dict[str, NDArray]], grad_req,
+                 aux_states: Dict[str, NDArray]):
+        self._symbol = sym
+        self._ctx = ctx or current_context()
+        self._device = self._ctx.torch_device()
+        self._prog = _GraphProgram(sym)
+        self.arg_dict = args
+        self.grad_dict = args_grad or {}
+        self.aux_dict = aux_states
+        self.arg_arrays = [args[n] for n in self._prog.arg_names]
+        self.grad_arrays = [self.grad_dict.get(n)
+                            for n in self._prog.arg_names]
+        self.aux_arrays = [aux_states[n] for n in self._prog.aux_names]
+        self.grad_req = _normalize_grad_req(grad_req, self._prog.arg_names)
+        self._outputs: List[NDArray] = []
+        # the last training forward: its outputs, still on the autograd
+        # graph, and the leaf tensors that stand for the arguments
+        self._graph = None
+
+    @property
+    def outputs(self):
+        return self._outputs
+
+    @property
+    def output_dict(self):
+        return dict(zip(self._symbol.list_outputs(), self._outputs))
+
+    def _wants_grad(self, name):
+        return self.grad_req.get(name, "null") != "null" \
+            and self.grad_dict.get(name) is not None
+
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph; ``kwargs`` write new argument values first.  A
+        training forward keeps the autograd graph for :meth:`backward`."""
+        for k, v in kwargs.items():
+            if k not in self.arg_dict:
+                raise MXNetError("unknown argument %s" % k)
+            dst = self.arg_dict[k]
+            dst._set_data(_as_tensor(v, dst.data))
+        leaves = {}
+        arg_vals = []
+        for name, arr in zip(self._prog.arg_names, self.arg_arrays):
+            val = arr.data
+            if is_train and self._wants_grad(name):
+                val = leaves[name] = val.detach().requires_grad_()
+            arg_vals.append(val)
+        outs, new_aux = self._prog._eval(
+            arg_vals, [a.data for a in self.aux_arrays], self._device,
+            is_train=is_train)
+        for arr, v in zip(self.aux_arrays, new_aux):
+            if v is not arr.data:
+                arr._set_data(v)
+        self._graph = (outs, leaves) if is_train else None
+        self._outputs = [NDArray(o.detach()) for o in outs]
+        return self._outputs
+
+    def backward(self, out_grads=None):
+        """Gradients of the last training forward into the gradient
+        arrays.  A missing head gradient is ones, as in the reference;
+        loss layers inject their own and ignore it."""
+        if self._graph is None:
+            raise MXNetError("run forward(is_train=True) before backward")
+        outs, leaves = self._graph
+        self._graph = None
+        if out_grads is None:
+            out_grads = []
+        elif not isinstance(out_grads, (list, tuple)):
+            out_grads = [out_grads]
+        heads, cotangents = [], []
+        for i, o in enumerate(outs):
+            if not o.requires_grad:
+                continue
+            g = out_grads[i] if i < len(out_grads) else None
+            heads.append(o)
+            cotangents.append(torch.ones_like(o) if g is None
+                              else _as_tensor(g, o))
+        names = list(leaves)
+        grads = [None] * len(names)
+        if heads and names:
+            grads = torch.autograd.grad(heads, [leaves[n] for n in names],
+                                        cotangents, allow_unused=True)
+        for name, g in zip(names, grads):
+            buf = self.grad_dict[name]
+            if g is None:
+                g = torch.zeros_like(buf.data)
+            if self.grad_req[name] == "add":
+                buf._set_data(buf.data + g)
+            else:
+                buf._set_data(g)
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy parameter values into the bound arrays (their device and
+        dtype stay)."""
+        for params, bound, what in ((arg_params, self.arg_dict, "argument"),
+                                    (aux_params or {}, self.aux_dict,
+                                     "aux state")):
+            for name, arr in params.items():
+                if name in bound:
+                    dst = bound[name]
+                    dst._set_data(_as_tensor(arr, dst.data))
+                elif not allow_extra_params:
+                    raise MXNetError("unknown %s %s" % (what, name))
+
+
+def _to_dict(arrays, names, what, allow_partial=False):
+    if isinstance(arrays, dict):
+        missing = [n for n in names if n not in arrays]
+        if missing and not allow_partial:
+            raise MXNetError("%s missing entries for %s" % (what, missing))
+        return {n: arrays[n] for n in names if n in arrays}
+    arrays = list(arrays)
+    if len(arrays) != len(names):
+        raise MXNetError("%s length %d != expected %d (%s)"
+                         % (what, len(arrays), len(names), names))
+    return dict(zip(names, arrays))
+
+
+def bind(sym, ctx, args, args_grad=None, grad_req="write", aux_states=None):
+    """Bind given arrays (reference ``executor.py:489``)."""
+    arg_names = sym.list_arguments()
+    aux_names = sym.list_auxiliary_states()
+    args = _to_dict(args, arg_names, "args")
+    if args_grad is not None:
+        args_grad = _to_dict(args_grad, arg_names, "args_grad",
+                             allow_partial=True)
+    aux_states = _to_dict(aux_states or {}, aux_names, "aux_states")
+    return Executor(sym, ctx, args, args_grad, grad_req, aux_states)
+
+
+def simple_bind(sym, ctx=None, grad_req="write", type_dict=None, **kwargs):
+    """Infer every shape and dtype from the given input shapes and bind
+    zero-filled arrays, gradients for each argument whose ``grad_req`` is
+    not ``null`` (reference ``executor.py:504-545``)."""
+    ctx = ctx or current_context()
+    arg_names = sym.list_arguments()
+    aux_names = sym.list_auxiliary_states()
+    arg_shapes, _, aux_shapes = sym.infer_shape(**kwargs)
+    if arg_shapes is None:
+        raise MXNetError("cannot infer shapes from %s" % kwargs)
+    arg_types, _, aux_types = sym.infer_type(**(type_dict or {}))
+    args = {n: zeros(s, ctx, t)
+            for n, s, t in zip(arg_names, arg_shapes, arg_types)}
+    reqs = _normalize_grad_req(grad_req, arg_names)
+    args_grad = {n: zeros(s, ctx, t)
+                 for n, s, t in zip(arg_names, arg_shapes, arg_types)
+                 if reqs[n] != "null"}
+    aux_states = {n: zeros(s, ctx, t)
+                  for n, s, t in zip(aux_names, aux_shapes, aux_types)}
+    return Executor(sym, ctx, args, args_grad, grad_req, aux_states)

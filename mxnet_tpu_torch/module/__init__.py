@@ -1,0 +1,6 @@
+"""Module API (``mxnet_tpu/module``): the classic executor path."""
+from .base_module import BaseModule
+from .executor_group import DataParallelExecutorGroup
+from .module import Module
+
+__all__ = ["BaseModule", "DataParallelExecutorGroup", "Module"]

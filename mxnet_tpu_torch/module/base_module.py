@@ -1,0 +1,273 @@
+"""BaseModule (``mxnet_tpu/module/base_module.py``): the train, evaluate
+and predict drivers over a subclass's computation primitives.
+
+The reference's surface (``python/mxnet/module/base_module.py``):
+``fit``, ``score``, ``predict``, ``iter_predict``, ``forward_backward``,
+the bind -> init_params -> init_optimizer lifecycle and ``arg:``/``aux:``
+parameter files.  The JAX package's observability, resilience, elastic,
+integrity and upload-overlap hooks around the epoch loop are not part of
+the port yet.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from collections import namedtuple
+
+from .. import metric as metric_mod
+from .. import ndarray
+from ..ndarray import NDArray
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _as_list(obj):
+    return obj if isinstance(obj, list) else [obj]
+
+
+def _invoke(callbacks, param):
+    for cb in _as_list(callbacks):
+        cb(param)
+
+
+def _check_input_names(symbol, names, typename, throw):
+    """Every requested input must be an argument of the symbol."""
+    args = symbol.list_arguments()
+    missing = [n for n in names if n not in args]
+    if not missing:
+        return
+    param_suffixes = ("_weight", "_bias", "_gamma", "_beta")
+    suggestions = [a for a in args if not a.endswith(param_suffixes)]
+    for name in missing:
+        msg = ("You created Module with Module(..., %s_names=%s) but input "
+               "with name '%s' is not found in symbol.list_arguments(). "
+               "Did you mean one of:\n\t%s" % (
+                   typename, str(names), name, "\n\t".join(suggestions)))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+class BaseModule(object):
+    """Abstract module: subclasses implement the computation primitives
+    (forward/backward/update/...) and inherit the drivers."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = self.params_initialized = False
+        self.for_training = self.inputs_need_grad = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # ==================================================================
+    # drivers
+    def forward_backward(self, data_batch):
+        """Forward then backward in one call."""
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def _evaluation_pass(self, eval_data, num_batch, reset):
+        """Forward (``is_train=False``) over an iterator, yielding
+        ``(nbatch, batch, outputs without the pad rows)``."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, batch in enumerate(eval_data):
+            if num_batch is not None and nbatch >= num_batch:
+                return
+            self.forward(batch, is_train=False)
+            keep = None if not batch.pad else -batch.pad
+            yield nbatch, batch, [NDArray(o.data[:keep])
+                                  for o in self.get_outputs()]
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Evaluate ``eval_metric`` over an iterator."""
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        eval_metric.reset()
+        seen = 0
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, batch in enumerate(eval_data):
+            if num_batch is not None and nbatch >= num_batch:
+                break
+            self.forward(batch, is_train=False)
+            self.update_metric(eval_metric, batch.label)
+            if batch_end_callback is not None:
+                _invoke(batch_end_callback,
+                        BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                      eval_metric=eval_metric,
+                                      locals=locals()))
+            seen = nbatch + 1
+        if score_end_callback:
+            _invoke(score_end_callback,
+                    BatchEndParam(epoch=epoch, nbatch=seen,
+                                  eval_metric=eval_metric, locals=locals()))
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` per evaluation batch."""
+        for nbatch, batch, outputs in self._evaluation_pass(
+                eval_data, num_batch, reset):
+            yield outputs, nbatch, batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """Collect predictions; with ``merge_batches`` the per-batch
+        outputs are concatenated (and a single output unwrapped)."""
+        collected = [outputs for _, _, outputs in self._evaluation_pass(
+            eval_data, num_batch, reset)]
+        if not collected or not merge_batches:
+            return collected
+        width = len(collected[0])
+        if any(len(outs) != width for outs in collected):
+            raise AssertionError(
+                "Cannot merge batches: the number of outputs varies "
+                "across mini-batches. Maybe bucketing is used?")
+        merged = [ndarray.concatenate([outs[i] for outs in collected])
+                  for i in range(width)]
+        if width == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None):
+        """Bind, initialize, then train for epochs of
+        forward_backward / update / update_metric with callbacks
+        (reference ``base_module.py:143``)."""
+        assert num_epoch is not None, "please specify number of epochs"
+        if initializer is None:
+            from ..initializer import Uniform
+            initializer = Uniform(0.01)
+        self.bind(train_data.provide_data, train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, force_init=force_init,
+                         allow_missing=allow_missing,
+                         arg_params=arg_params, aux_params=aux_params)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        validation_metric = validation_metric or eval_metric
+
+        for epoch in range(begin_epoch, num_epoch):
+            elapsed = self._train_epoch(epoch, train_data, eval_metric,
+                                        batch_end_callback)
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, elapsed)
+            arg_snap, aux_snap = self.get_params()
+            if epoch_end_callback is not None:
+                for cb in _as_list(epoch_end_callback):
+                    cb(epoch, self.symbol, arg_snap, aux_snap)
+            if eval_data:
+                for name, val in self.score(
+                        eval_data, validation_metric,
+                        score_end_callback=eval_end_callback,
+                        batch_end_callback=eval_batch_end_callback,
+                        epoch=epoch):
+                    self.logger.info("Epoch[%d] Validation-%s=%f",
+                                     epoch, name, val)
+            train_data.reset()
+
+    def _train_epoch(self, epoch, train_data, eval_metric,
+                     batch_end_callback):
+        """One pass over ``train_data``; returns the wall time
+        (reference ``base_module.py:475``)."""
+        eval_metric.reset()
+        tic = time.time()
+        for nbatch, data_batch in enumerate(train_data):
+            self.forward_backward(data_batch)
+            self.update()
+            self.update_metric(eval_metric, data_batch.label)
+            if batch_end_callback is not None:
+                _invoke(batch_end_callback,
+                        BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                      eval_metric=eval_metric,
+                                      locals=locals()))
+        return time.time() - tic
+
+    # ==================================================================
+    # symbol / params
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def get_params(self):
+        raise NotImplementedError()
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False):
+        raise NotImplementedError()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True):
+        self.init_params(initializer=None, force_init=force_init,
+                         allow_missing=allow_missing,
+                         arg_params=arg_params, aux_params=aux_params)
+
+    def save_params(self, fname):
+        """Write params with the reference's ``arg:``/``aux:`` prefixes."""
+        arg_params, aux_params = self.get_params()
+        blob = {"arg:" + k: v for k, v in arg_params.items()}
+        blob.update(("aux:" + k, v) for k, v in aux_params.items())
+        ndarray.save(fname, blob)
+
+    def load_params(self, fname):
+        """Inverse of :meth:`save_params`."""
+        arg_params, aux_params = {}, {}
+        bins = {"arg": arg_params, "aux": aux_params}
+        for key, value in ndarray.load(fname).items():
+            kind, _, name = key.partition(":")
+            if kind not in bins or not name:
+                raise ValueError("Invalid param file " + fname)
+            bins[kind][name] = value
+        self.set_params(arg_params, aux_params)
+
+    # ==================================================================
+    # computation primitives (subclass responsibility)
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError()
+
+    def _abstract_property(self):
+        raise NotImplementedError()
+
+    data_names = property(_abstract_property)
+    output_names = property(_abstract_property)
+    data_shapes = property(_abstract_property)
+    label_shapes = property(_abstract_property)
+    output_shapes = property(_abstract_property)

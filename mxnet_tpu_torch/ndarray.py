@@ -60,7 +60,9 @@ def _shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
 class NDArray:
     """N-dimensional array on a device (the host or a CUDA card)."""
 
-    __slots__ = ("_data", "_writable", "__weakref__")
+    # ``grad`` is the gradient array of a variable marked for autograd
+    # (``attach_grad``), ``_grad_req`` its request
+    __slots__ = ("_data", "_writable", "grad", "_grad_req", "__weakref__")
     # make numpy defer binary ops to us (np_arr * nd_arr is an NDArray)
     __array_priority__ = 1000.0
 
@@ -70,6 +72,8 @@ class NDArray:
                             % type(data).__name__)
         self._data = data
         self._writable = writable
+        self.grad = None
+        self._grad_req = None
 
     # ------------------------------------------------------------------
     # raw value plumbing
@@ -91,7 +95,8 @@ class NDArray:
                              % (tuple(value.shape), self.shape))
         if _shares_memory(value, self._data):
             value = value.clone()
-        self._data.copy_(value)
+        with torch.no_grad():   # a write is never differentiated
+            self._data.copy_(value)
 
     # ------------------------------------------------------------------
     # properties
@@ -306,13 +311,28 @@ class NDArray:
                                      self.context)
 
     # ------------------------------------------------------------------
+    # pickling (optimizer states in a checkpoint): the values on the host
+    def __getstate__(self):
+        return {"data": self._data.detach().cpu(), "writable": self._writable}
+
+    def __setstate__(self, state):
+        self._data = state["data"]
+        self._writable = state["writable"]
+        self.grad = None
+        self._grad_req = None
+
     def attach_grad(self, grad_req="write"):
-        raise MXNetError("autograd is not ported yet: attach_grad comes "
-                         "with the port's training slice")
+        """Mark this array for autograd with a zero gradient array
+        (``self.grad``)."""
+        from . import autograd
+        autograd.mark_variables(
+            [self], [NDArray(torch.zeros_like(self._data))], [grad_req])
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
-        raise MXNetError("autograd is not ported yet: backward comes with "
-                         "the port's training slice")
+        """Gradients of this array into the marked variables'."""
+        from . import autograd
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
 
 
 def _ufunc(lhs, rhs, array_op, scalar_op):

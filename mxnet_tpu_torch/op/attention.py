@@ -1,7 +1,7 @@
 """Attention ops (``mxnet_tpu/op/attention.py``)."""
 from __future__ import annotations
 
-from .kernels.flash_attention import attention_reference, flash_attention_fwd
+from .kernels.flash_attention import attention_reference, flash_attention
 from .registry import Param, register
 
 
@@ -16,13 +16,15 @@ from .registry import Param, register
 def _dot_product_attention(p, c, q, k, v):
     """Exact multi-head attention over ``[batch, time, heads, dim]``.
 
-    ``flash=True`` runs the flash-attention kernel on CUDA tensors (its
-    plain version on CPU tensors); ``flash=False`` the plain version.
+    ``flash=True`` goes through ``FlashAttention``: the flash-attention
+    kernels, forward and backward, on CUDA tensors (their plain versions
+    on CPU tensors); ``flash=False`` the plain forward, differentiated by
+    torch autograd.
     ``block_q``/``block_k`` are the JAX kernel's tile sizes: accepted so
     symbol JSON round-trips, and ignored, because the CUDA kernel
     chooses its own tile.
     """
     scale = None if p["scale"] <= 0 else p["scale"]
     if p["flash"]:
-        return flash_attention_fwd(q, k, v, causal=p["causal"], scale=scale)[0]
+        return flash_attention(q, k, v, causal=p["causal"], scale=scale)
     return attention_reference(q, k, v, causal=p["causal"], scale=scale)[0]

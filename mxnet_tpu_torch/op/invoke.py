@@ -4,8 +4,10 @@ the reference's ``MXImperativeInvoke`` (``src/c_api/c_api_ndarray.cc:
 
 Each call runs the op body eagerly on the NDArrays' tensors, on the
 device they lie on; torch's stream ordering stands in for the
-reference's dependency engine.  There is no autograd tape in this port
-yet, so every call runs the eval forward.
+reference's dependency engine.  Inside ``autograd.record()`` the body
+runs under torch autograd, which is the port's tape
+(``mxnet_tpu_torch/autograd.py``); ``autograd.is_training()`` selects
+the ops' training behaviour.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ def invoke(op: Op, inputs: List["NDArray"], kwargs: Dict, out=None,
     """Apply ``op`` eagerly to NDArray inputs.  Returns a list of
     NDArrays.  An op without inputs runs on its ``ctx`` param's device,
     else on the current context's."""
-    from .. import random as _random
+    from .. import autograd, random as _random
     from ..ndarray import NDArray, _shares_memory
 
     params = op.parse_params(kwargs)
@@ -34,7 +36,9 @@ def invoke(op: Op, inputs: List["NDArray"], kwargs: Dict, out=None,
             .torch_device()
     rng = _random.generator(device) if op.uses_rng else None
     outs, aux_updates = op.apply(
-        params, OpContext(is_train=False, device=device, rng=rng), *in_vals)
+        params, OpContext(is_train=autograd.is_training(), device=device,
+                          rng=rng, record=autograd.is_recording()),
+        *in_vals)
 
     if out is not None:
         out_nd = [out] if isinstance(out, NDArray) else list(out)

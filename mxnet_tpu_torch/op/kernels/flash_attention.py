@@ -1,4 +1,4 @@
-"""Flash attention forward: the hand-written CUDA kernels and their plain version.
+"""Flash attention: the hand-written CUDA kernels and their plain versions.
 
 ``flash_attention_fwd`` is the port of the Pallas TPU kernel
 ``mxnet_tpu/op/pallas/flash_attention.py:_fwd_kernel`` (launched by
@@ -16,6 +16,14 @@ function: the port's copy of
 ``mxnet_tpu/parallel/ring_attention.py:attention_reference``, extended
 to return the per-row logsumexp.
 
+``flash_attention_bwd`` is the port of the JAX package's backward,
+``_bwd_impl`` (the ``custom_vjp`` backward of ``flash_attention``): one
+CUDA source, ``mxnet_tpu_torch/csrc/flash_attention_bwd.cu``, templated
+over both dtypes.  ``attention_bwd_reference`` is its plain version, a
+port of ``_bwd_impl`` as a loop over key blocks.  :class:`FlashAttention`
+pairs the two as a ``torch.autograd.Function``; :func:`flash_attention`
+applies it.
+
 Layout: q ``[b, t_q, h, d]``, k and v ``[b, t_kv, h, d]``; both return
 ``(o, lse)`` with ``o`` ``[b, t_q, h, d]`` in q's dtype and ``lse``
 ``[b*h, t_q]`` in float32 (the JAX kernel's convention: ``-inf`` for a
@@ -31,8 +39,9 @@ import torch
 from ...base import MXNetError
 from .build import CudaLibrary
 
-__all__ = ["flash_attention_fwd", "attention_reference", "kernel_route",
-           "LIBRARIES"]
+__all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
+           "flash_attention_bwd", "attention_reference",
+           "attention_bwd_reference", "kernel_route", "LIBRARIES"]
 
 MAX_HEAD_DIM = 128
 _MAX_Q_TILES = 65535     # the kernels' grid limit on query tiles
@@ -99,7 +108,26 @@ _KERNELS = {
     torch.bfloat16: _Kernel("flash_attention_fwd_bf16", block_m=128),
     torch.float32: _Kernel("flash_attention_fwd_f32", block_m=64),
 }
-LIBRARIES = tuple(kern.library for kern in _KERNELS.values())
+
+
+def _declare_bwd(lib):
+    for symbol in _BWD_SYMBOLS.values():
+        fn = getattr(lib, symbol)
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+
+
+# the backward: one source, one C entry (and one kernel name) per dtype
+_BWD_LIBRARY = CudaLibrary("flash_attention_bwd", _declare_bwd)
+BWD_NAMES = {torch.float32: "flash_attention_bwd_f32",
+             torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_SYMBOLS = {dt: "mxtt_" + name for dt, name in BWD_NAMES.items()}
+LIBRARIES = tuple(kern.library for kern in _KERNELS.values()) \
+    + (_BWD_LIBRARY,)
 
 
 def _needs_copy(x):
@@ -196,15 +224,162 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     return o, lse
 
 
+def attention_bwd_reference(q, k, v, o, lse, do, causal=False, scale=None,
+                            block_k=128):
+    """Plain backward of :func:`attention_reference`; returns
+    ``(dq, dk, dv)`` in the inputs' dtype.
+
+    A port of ``mxnet_tpu/op/pallas/flash_attention.py:_bwd_impl`` in
+    the ``[b, t, h, d]`` layout, as a loop over blocks of ``block_k``
+    keys, with its numerics: float32 inputs stay float32; bfloat16
+    inputs feed each product in bfloat16 with float32 accumulation
+    (``q * scale`` formed in float32 and rounded, P rounded before dV,
+    dS before dQ and dK), here as float32 products of the rounded
+    values; ``exp`` and dS stay float32.  A row whose lse is ``-inf``
+    gets P = 0."""
+    b, t_q, h, d = q.shape
+    t_kv = k.shape[1]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    narrow = q.dtype in (torch.bfloat16, torch.float16)
+
+    def operand(x):
+        """A product's operand: rounded to the input dtype, in float32."""
+        return x.to(q.dtype).float() if narrow else x.float()
+
+    qs = operand(q.float() * scale)
+    do_m = operand(do)
+    delta = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float())
+    lse = lse.reshape(b, h, t_q)
+    live_row = ~torch.isneginf(lse)[..., None]
+    q_pos = torch.arange(t_q, device=q.device)
+    dq = torch.zeros((b, t_q, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, t_kv, h, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, t_kv, block_k):
+        kb, vb = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kb)
+        live = live_row
+        if causal:
+            k_pos = torch.arange(k0, k0 + kb.shape[1], device=q.device)
+            live = live & (q_pos[:, None] >= k_pos[None, :])
+        p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+        dv[:, k0:k0 + block_k] = torch.einsum("bhqk,bqhd->bkhd", operand(p),
+                                              do_m)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do_m, vb)
+        ds = operand(p * (dp - delta[..., None]))
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, kb) * scale
+        dk[:, k0:k0 + block_k] = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
+    """The backward of :func:`flash_attention_fwd`: ``(dq, dk, dv)`` from
+    the forward's inputs, its ``(o, lse)`` and the output gradient
+    ``do``, all ``[b, t, h, d]`` but ``lse`` (``[b*h, t_q]`` float32).
+
+    CUDA tensors run the hand-written kernel of their dtype or raise:
+    there is no fallback.  The kernel reads every input through its
+    strides; one whose last dimension is not contiguous is first copied
+    once (counted in ``flash_attention_bwd.copies``).  CPU tensors run
+    the plain version.
+    """
+    _check_shapes(q, k, v)
+    b, t_q, h, d = q.shape
+    t_kv = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise MXNetError("flash attention backward: o %s and do %s must have "
+                         "q's shape %s" % (tuple(o.shape), tuple(do.shape),
+                                           tuple(q.shape)))
+    if lse.shape != (b * h, t_q):
+        raise MXNetError("flash attention backward: lse %s, expected %s"
+                         % (tuple(lse.shape), (b * h, t_q)))
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                       scale=scale)
+    if q.device.type != "cuda":
+        raise MXNetError("flash attention backward runs on cuda or cpu "
+                         "tensors; got %s" % q.device)
+    name = BWD_NAMES.get(q.dtype)
+    if name is None or any(x.dtype != q.dtype for x in (k, v, o, do)):
+        raise MXNetError("flash attention backward kernel takes float32 or "
+                         "bfloat16 q, k, v, o, do of one dtype; got %s"
+                         % [str(x.dtype) for x in (q, k, v, o, do)])
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise MXNetError("flash attention backward kernel takes 1 <= "
+                         "head_dim <= %d; got %d" % (MAX_HEAD_DIM, d))
+    if q.numel() == 0 or k.numel() == 0:
+        return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
+                torch.zeros(k.shape, dtype=k.dtype, device=k.device),
+                torch.zeros(v.shape, dtype=v.dtype, device=v.device))
+    # the kernel writes every element of these
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    ins = [x if x.stride(-1) == 1 else x.contiguous()
+           for x in (q, k, v, o, do)]
+    copies = sum(x is not y for x, y in zip(ins, (q, k, v, o, do)))
+    lse = lse.float().contiguous()
+    delta = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(st for x in ins
+                                         for st in x.stride()[:3]))
+    lib = _BWD_LIBRARY.load()
+    with torch.cuda.device(q.device):
+        err = getattr(lib, _BWD_SYMBOLS[q.dtype])(
+            *(x.data_ptr() for x in ins), lse.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, t_q, t_kv,
+            d, strides, float(scale), int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise MXNetError("flash attention backward kernel %s launch failed: "
+                         "%s (error %d)" % (name, lib.mxtt_cuda_error_string(
+                             err).decode(), err))
+    flash_attention_bwd.kernel_launches[name] += 1
+    flash_attention_bwd.copies += copies
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Exact attention whose forward is :func:`flash_attention_fwd` (K1)
+    and whose backward is :func:`flash_attention_bwd` (B2): the port of
+    the JAX package's ``_flash`` ``custom_vjp``.  CPU tensors take both
+    plain versions; CUDA tensors take both kernels or raise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """Differentiable exact attention ``[b, t, h, d]`` -> ``[b, t_q, h,
+    d]`` through :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v, causal, scale)
+
+
 def reset_counts():
-    """Set every count of ``flash_attention_fwd`` to 0."""
+    """Set every count of ``flash_attention_fwd`` and
+    ``flash_attention_bwd`` to 0."""
     flash_attention_fwd.launches = 0
     flash_attention_fwd.kernel_launches = {
         kern.name: 0 for kern in _KERNELS.values()}
     flash_attention_fwd.padded_copies = 0
+    flash_attention_bwd.kernel_launches = dict.fromkeys(BWD_NAMES.values(), 0)
+    flash_attention_bwd.copies = 0
 
 
 # kernel launches since the counts were last set to 0, in all and by
-# kernel, and the inputs copied before a launch (the plain version and
+# kernel, and the inputs copied before a launch (the plain versions and
 # meta inference never count)
 reset_counts()

@@ -1,6 +1,8 @@
-"""Neural-network layer ops (``mxnet_tpu/op/nn.py``): the forward of the
-layers the transformer LM runs.  Matrix products go to ``torch`` (cuBLAS
-on the card), as the JAX package leaves them to XLA."""
+"""Neural-network layer ops (``mxnet_tpu/op/nn.py``): the layers the
+transformer LM runs, forward and, through torch autograd, backward.
+Matrix products go to ``torch`` (cuBLAS on the card), as the JAX package
+leaves them to XLA; ``SoftmaxOutput`` injects the reference's gradient
+through a ``torch.autograd.Function``."""
 from __future__ import annotations
 
 import math
@@ -8,8 +10,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
 from .elemwise import _softplus
+from .tensor import one_hot
 from .registry import Param, register, alias, get
 
 
@@ -88,17 +90,81 @@ def _ln_infer_shape(p, in_shapes):
 
 # ----------------------------------------------------------------------
 # Dropout
-@register("Dropout", params_spec=(Param("p", float, 0.5),), hint="dropout")
+@register("Dropout", params_spec=(Param("p", float, 0.5),), uses_rng=True,
+          mode_dependent=True, hint="dropout")
 def _dropout(p, c, a):
+    """Inverted dropout: in training each element is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``, the mask drawn
+    from the OpContext's generator; the identity otherwise."""
     if not c.is_train or p["p"] <= 0.0:
         return a
-    raise MXNetError("training-mode Dropout is not ported yet (the port "
-                     "runs the eval forward only)")
+    keep = 1.0 - p["p"]
+    mask = torch.empty(a.shape, dtype=torch.float32, device=a.device) \
+        .bernoulli_(keep, generator=c.rng)
+    return a * (mask / keep).to(a.dtype)
 
 
 # ----------------------------------------------------------------------
-# SoftmaxOutput: the forward only (its injected gradient comes with the
-# training slice)
+# SoftmaxOutput: the softmax forward, and the reference's injected
+# gradient in place of the softmax's own
+def _softmax_forward(p, data):
+    if p["multi_output"]:
+        return torch.softmax(data, dim=1)
+    if p["preserve_shape"]:
+        return torch.softmax(data, dim=-1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """``SoftmaxOutput`` with its injected gradient: the port of
+    ``mxnet_tpu/op/nn.py:_softmax_output_bwd``.  The data's gradient is
+    ``(softmax - one_hot(label))`` (or ``- label`` for a dense label),
+    ignored labels zeroed, divided per ``normalization``, times the head
+    gradient only with ``out_grad``, times ``grad_scale``; the label's
+    gradient is none."""
+
+    @staticmethod
+    def forward(ctx, data, label, p):
+        out = _softmax_forward(p, data)
+        ctx.save_for_backward(out, label)
+        ctx.p = p
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        p = ctx.p
+        ignore = p["use_ignore"]
+        if p["multi_output"]:
+            # data (n, c, ...), label (n, ...): one-hot over axis 1
+            oh = one_hot(label, out.shape[1], out.dtype).movedim(-1, 1)
+            grad = out - oh
+            valid = torch.ones(label.shape, dtype=out.dtype, device=out.device)
+            if ignore:
+                valid = (label != p["ignore_label"]).to(out.dtype)
+                grad = grad * valid.unsqueeze(1)
+        elif label.dim() == out.dim():
+            grad = out - label.to(out.dtype)      # dense label
+            valid = torch.ones(label.shape[:1], dtype=out.dtype,
+                               device=out.device)
+        else:
+            oh = one_hot(label, out.shape[-1], out.dtype)
+            grad = out - oh.reshape(out.shape)
+            valid = torch.ones(label.shape, dtype=out.dtype, device=out.device)
+            if ignore:
+                valid = (label != p["ignore_label"]).to(out.dtype)
+                grad = grad * valid.reshape(
+                    label.shape + (1,) * (out.dim() - label.dim()))
+        if p["normalization"] == "batch":
+            grad = grad / out.shape[0]
+        elif p["normalization"] == "valid":
+            grad = grad / valid.sum().clamp(min=1.0)
+        if p["out_grad"]:
+            grad = grad * g
+        return grad * p["grad_scale"], None, None
+
+
 @register("SoftmaxOutput",
           params_spec=(Param("grad_scale", float, 1.0),
                        Param("ignore_label", float, -1.0),
@@ -110,12 +176,9 @@ def _dropout(p, c, a):
                        Param("out_grad", bool, False)),
           input_names=("data", "label"), hint="softmaxoutput")
 def _softmax_output(p, c, data, label):
-    if p["multi_output"]:
-        return torch.softmax(data, dim=1)
-    if p["preserve_shape"]:
-        return torch.softmax(data, dim=-1)
-    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
-        .reshape(data.shape)
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _SoftmaxOutputFn.apply(data, label, p)
+    return _softmax_forward(p, data)
 
 
 alias("Softmax", "SoftmaxOutput")

@@ -30,19 +30,22 @@ _META = torch.device("meta")
 class OpContext:
     """Runtime context threaded into every op body.
 
-    ``is_train`` selects mode-dependent behaviour (Dropout); this port
-    runs the eval forward only.  ``device`` is where ops without tensor
-    inputs (``_arange``, ``_zeros``) create their output: the executor's
-    device, the imperative call's context, or ``meta`` during shape
-    inference.  ``rng`` is that device's ``torch.Generator``, which ops
-    that declared ``uses_rng`` draw from (the reference's
+    ``is_train`` selects mode-dependent behaviour (Dropout).  ``record``
+    says whether torch autograd records the body: the executor records
+    exactly when it trains; an imperative call records inside
+    ``autograd.record()``, whatever its mode.  ``device`` is where ops
+    without tensor inputs (``_arange``, ``_zeros``) create their output:
+    the executor's device, the imperative call's context, or ``meta``
+    during shape inference.  ``rng`` is that device's ``torch.Generator``,
+    which ops that declared ``uses_rng`` draw from (the reference's
     ``ResourceRequest::kRandom``); None where nothing draws.
     """
 
-    __slots__ = ("is_train", "device", "rng")
+    __slots__ = ("is_train", "record", "device", "rng")
 
-    def __init__(self, is_train=False, device=None, rng=None):
+    def __init__(self, is_train=False, device=None, rng=None, record=None):
         self.is_train = is_train
+        self.record = is_train if record is None else record
         self.device = torch.device("cpu") if device is None else device
         self.rng = rng
 
@@ -113,6 +116,8 @@ class Op:
     infer_shape: Optional[Callable] = None  # (params, in_shapes) -> (in,out,aux)
     infer_dtype: Optional[Callable] = None
     uses_rng: bool = False  # the body draws from ``OpContext.rng``
+    # the body's result depends on ``OpContext.is_train`` (Dropout)
+    mode_dependent: bool = False
     hint: str = ""  # auto-naming hint, defaults to lowercased name
 
     def list_inputs(self, params) -> List[str]:
@@ -161,8 +166,13 @@ class Op:
 
     # ------------------------------------------------------------------
     def apply(self, params, ctx: OpContext, *tensors):
-        """Run the op body; returns (outputs_tuple, aux_updates_tuple)."""
-        out = self.fn(params, ctx, *tensors)
+        """Run the op body; returns (outputs_tuple, aux_updates_tuple).
+
+        The body runs under torch autograd when ``ctx.record`` holds and
+        an input requires a gradient, and without it otherwise."""
+        grad = ctx.record and any(t.requires_grad for t in tensors)
+        with torch.set_grad_enabled(grad):
+            out = self.fn(params, ctx, *tensors)
         if not isinstance(out, tuple):
             out = (out,)
         n_out = self.n_outputs(params)

@@ -1,0 +1,241 @@
+"""Optimizers (``mxnet_tpu/optimizer.py``).
+
+The class surface of the reference's optimizer module
+(``python/mxnet/optimizer.py``): the :class:`Optimizer` base with its
+registry, update counting, ``rescale_grad``, ``wd``, ``clip_gradient``,
+lr/wd multipliers (from the symbol's ``__lr_mult__``/``__wd_mult__``
+attributes and by name) and ``lr_scheduler``; :class:`SGD` with momentum
+and :class:`Adam`; :func:`create`, and :func:`get_updater`, whose states
+round-trip through ``get_states``/``set_states``.
+
+Each update is a few plain torch operations in place on the weight and
+its state, on the device they lie on (the card in training); the JAX
+package jits the same rule per weight, and no Pallas kernel exists for
+it.  The arithmetic is the JAX package's ``_rule`` of each class, in
+the same order.
+"""
+from __future__ import annotations
+
+import logging
+import math
+import pickle
+
+import torch
+
+from .base import MXNetError
+from .ndarray import NDArray
+
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "get_updater",
+           "register"]
+
+
+class Optimizer(object):
+    """Base: registry, update counting, lr/wd multiplier tables and the
+    gradient preprocessing every rule shares."""
+
+    opt_registry = {}
+
+    def __init__(self, rescale_grad=1., param_idx2name=None, wd=0.,
+                 clip_gradient=None, learning_rate=0.01,
+                 lr_scheduler=None, sym=None, begin_num_update=0):
+        self.rescale_grad = rescale_grad
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
+        self.num_update = self.begin_num_update = begin_num_update
+        self._index_update_count = {}
+        if param_idx2name is not None \
+                and not isinstance(param_idx2name, dict):
+            raise MXNetError(
+                "param_idx2name should be a dict of param indexes to names.")
+        self.idx2name = dict(param_idx2name or {})
+        self.sym = sym
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    # -- registry -------------------------------------------------------
+    @staticmethod
+    def register(klass):
+        key = klass.__name__.lower()
+        if key in Optimizer.opt_registry:
+            logging.warning("WARNING: New optimizer %s.%s is overriding "
+                            "existing optimizer %s", klass.__module__,
+                            klass.__name__, key)
+        Optimizer.opt_registry[key] = klass
+        return klass
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        try:
+            return Optimizer.opt_registry[name.lower()](**kwargs)
+        except KeyError:
+            raise ValueError("Cannot find optimizer %s" % name)
+
+    # -- multiplier tables ----------------------------------------------
+    def _attr_table(self, attr_key):
+        """``__lr_mult__``-style per-argument attributes of the symbol."""
+        table = {}
+        if self.sym is not None:
+            attrs = self.sym.attr_dict()
+            for arg in self.sym.list_arguments():
+                val = attrs.get(arg, {}).get(attr_key)
+                if val is not None:
+                    table[arg] = float(val)
+        return table
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = self._attr_table("__lr_mult__")
+        self.lr_mult.update(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        # biases and norm shifts decay at 0 unless told otherwise
+        self.wd_mult = {
+            n: 0.0 for n in self.idx2name.values()
+            if not n.endswith(("_weight", "_gamma"))}
+        self.wd_mult.update(self._attr_table("__wd_mult__"))
+        self.wd_mult.update(args_wd_mult)
+
+    def _mult_for(self, table, index, default=1.0):
+        if index in table:
+            return table[index]
+        return table.get(self.idx2name.get(index), default)
+
+    def _get_lr(self, index):
+        base = (self.lr_scheduler(self.num_update)
+                if self.lr_scheduler is not None else self.lr)
+        return base * self._mult_for(self.lr_mult, index)
+
+    def _get_wd(self, index):
+        return self.wd * self._mult_for(self.wd_mult, index)
+
+    def _update_count(self, index):
+        count = self._index_update_count.get(index, self.begin_num_update) + 1
+        self._index_update_count[index] = count
+        self.num_update = max(count, self.num_update)
+
+    def _step(self, index):
+        """``(lr, wd, t)`` of this update of ``index``: lr reads the count
+        before this update, the step ``t`` the per-index count after it,
+        as in the reference."""
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        return lr, wd, self._index_update_count[index]
+
+    def _prep_grad(self, g, w, wd):
+        """Rescale, clip, add weight decay: a new tensor."""
+        g = g * self.rescale_grad
+        if self.clip_gradient is not None and self.clip_gradient > 0:
+            g = g.clamp_(-self.clip_gradient, self.clip_gradient)
+        return g.add_(w, alpha=wd)
+
+    # -- per-rule -------------------------------------------------------
+    def create_state(self, index, weight):
+        """Per-weight state as (possibly nested) NDArrays, or None."""
+        return None
+
+    def update(self, index, weight, grad, state):
+        """Update ``weight`` (and ``state``) in place from ``grad``."""
+        raise NotImplementedError()
+
+
+register = Optimizer.register
+
+
+def _zeros_like(weight):
+    return NDArray(torch.zeros_like(weight.data))
+
+
+@register
+class SGD(Optimizer):
+    """(Momentum) SGD, the reference's ``sgd_update`` /
+    ``sgd_mom_update`` (``src/operator/optimizer_op.cc:18-60``):
+    ``mom = momentum * mom - lr * g; w += mom``."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight) if self.momentum else None
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd, _ = self._step(index)
+        w = weight.data
+        g = self._prep_grad(grad.data, w, wd)
+        if state is None:
+            w.sub_(g.mul_(lr))
+            return
+        mom = state.data
+        mom.mul_(self.momentum).sub_(g.mul_(lr))
+        w.add_(mom)
+
+
+@register
+class Adam(Optimizer):
+    """Adam with the bias correction folded into the step size."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd, t = self._step(index)
+        w = weight.data
+        mean, var = state[0].data, state[1].data
+        g = self._prep_grad(grad.data, w, wd)
+        mean.mul_(self.beta1).add_(g, alpha=1 - self.beta1)
+        var.mul_(self.beta2).addcmul_(g, g, value=1 - self.beta2)
+        step = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
+        w.sub_(mean.mul(step).div_(var.sqrt().add_(self.epsilon)))
+
+
+create = Optimizer.create_optimizer
+
+
+def _to_device(state, device):
+    """A state with its arrays moved to ``device``."""
+    if isinstance(state, NDArray):
+        return state if state.data.device == device \
+            else NDArray(state.data.to(device))
+    if isinstance(state, (tuple, list)):
+        return type(state)(_to_device(s, device) for s in state)
+    return state
+
+
+class Updater(object):
+    """Bridges the ``(index, grad, weight)`` callback onto an Optimizer,
+    creating each index's state at its first update.  ``get_states``
+    pickles the states on the host; ``set_states`` restores them, and
+    each moves to its weight's device at its next update."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        state = self.states[index] = _to_device(self.states[index],
+                                                weight.data.device)
+        self.optimizer.update(index, weight, grad, state)
+
+    def set_states(self, blob):
+        self.states = pickle.loads(blob)
+
+    def get_states(self):
+        host = torch.device("cpu")
+        return pickle.dumps({k: _to_device(v, host)
+                             for k, v in self.states.items()})
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

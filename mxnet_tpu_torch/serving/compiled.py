@@ -62,4 +62,4 @@ class CompiledForward:
                 for n in self.prog.arg_names]
         with torch.inference_mode():
             return self.prog._eval(vals, [aux[n] for n in self.aux_names],
-                                   device)
+                                   device)[0]

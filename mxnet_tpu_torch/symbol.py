@@ -148,6 +148,30 @@ class Symbol:
                 names.extend("%s_%s" % (n.name, a) for a in n.aux_names())
         return names
 
+    def attr_dict(self):
+        """Every node's attributes and params as strings, by node name
+        (the ``__lr_mult__``/``__init__`` a Variable carries included)."""
+        ret = {}
+        for n in _topo([e[0] for e in self._outputs]):
+            d = dict(n.attrs)
+            d.update({k: _attr_str(v) for k, v in n.params.items()
+                      if v is not None})
+            if d:
+                ret[n.name] = d
+        return ret
+
+    # ------------------------------------------------------------------
+    # binding (reference symbol.py bind / simple_bind)
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None):
+        from .executor import bind
+        return bind(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **kwargs):
+        from .executor import simple_bind
+        return simple_bind(self, ctx, grad_req, type_dict, **kwargs)
+
     def get_internals(self) -> "Symbol":
         outs = []
         for n in _topo([e[0] for e in self._outputs]):
@@ -244,18 +268,26 @@ def _sym_ufunc(lhs, rhs, array_op, scalar_op):
 
 
 # ----------------------------------------------------------------------
-def Variable(name, attr=None, shape=None, dtype=None) -> Symbol:
-    """Create a symbolic variable (reference ``symbol.py`` Variable).
-    The training-time attributes (``lr_mult``, ``init``...) come with the
-    training slice; JSON that carries them loads and saves unchanged."""
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None) -> Symbol:
+    """Create a symbolic variable (reference ``symbol.py`` Variable):
+    ``lr_mult``/``wd_mult`` scale the optimizer's rates for it, ``init``
+    (an initializer or its ``dumps()``) overrides the default rule."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     attr = attribute.current().get(attr)
     node = _Node(None, name, attrs=dict(attr or {}))
     if shape is not None:
         node.attrs["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        node.attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        node.attrs["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
         node.attrs["__dtype__"] = dtype_name(_dtype(dtype))
+    if init is not None:
+        node.attrs["__init__"] = init if isinstance(init, str) \
+            else init.dumps()
     return Symbol([(node, 0)])
 
 
