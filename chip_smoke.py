@@ -12,16 +12,19 @@ fails:
    products and convolutions, so float32 means float32;
 2. build: every CUDA kernel of the port, from ``mxnet_tpu_torch/csrc``,
    one nvcc per source, all at once, with each kernel's registers and
-   spills; the bfloat16 attention kernel's SASS must hold tensor-core
-   (``HGMMA``) and TMA (``UTMALDG``) instructions; then one ``mt.rtc``
-   kernel compiled by NVRTC cold, and again from the module cache;
+   spills (none allowed in the backward kernels); the SASS of both
+   bfloat16 attention kernels, forward and backward, must hold
+   tensor-core (``HGMMA``) and TMA (``UTMALDG``) instructions; then one
+   ``mt.rtc`` kernel compiled by NVRTC cold, and again from the module
+   cache;
 3. kernel check: each kernel against its plain PyTorch version on the
    card, at the serving shapes and at ragged, cross-shaped, single-row
    and other head-dim shapes, every case in float32 and bfloat16, with
    the inputs the wrapper must copy first (head_dim 20 in bfloat16)
    counted: the attention forward (K1) and its backward (B2), and in
    float32 the gradients through ``FlashAttention`` (K1 then B2) against
-   torch autograd of the plain forward;
+   torch autograd of the plain forward; then B2 launched twice on the
+   serving shapes in each dtype, its gradients bitwise equal;
 4. rtc check: each ``language="cuda"`` rtc kernel against its
    ``language="torch"`` plain version on the card: ``tests/test_rtc.py``'s
    three cases, explicit grid and block dims, bfloat16, outputs that are
@@ -41,10 +44,11 @@ fails:
 7. train: ``Module.fit`` trains the LM at GPT-2 small's widths and full
    depth on the card (Adam, batch 4 x 1024 tokens, TRAIN_EPOCHS epochs of
    TRAIN_BATCHES batches of memorizable cyclic token sequences), with
-   12 forward and 12 backward attention launches asserted each step and
-   the perplexity asserted to fall; step time, tokens/s and peak device
-   memory; then one step's every parameter gradient held against the
-   port's CPU run of the same step (depth cut to 2 layers there);
+   12 forward and 12 backward attention launches asserted each step, no
+   input copied, and the perplexity asserted to fall; step time, tokens/s
+   and peak device memory; then one step's every parameter gradient held
+   against the port's CPU run of the same step (depth cut to 2 layers
+   there);
 8. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
@@ -148,14 +152,15 @@ CHECKS = [
 ]
 DTYPES = (torch.float32, torch.bfloat16)
 # inputs the wrapper copies before the launch, by (label, dtype); none
-# elsewhere
+# elsewhere.  K1 reads q, k, v by TMA (bfloat16) or 16-byte cp.async
+# (float32); B2-bfloat16 reads k, v and dO by TMA (q and O by element)
 COPIES = {("head_dim_20_padded_copy", torch.bfloat16): 3}
+B2_COPIES = {("head_dim_20_padded_copy", torch.bfloat16): 3}
 # the attention kernel's source and C entry for each dtype
 K1_SOURCES = {torch.float32: "flash_attention_fwd_f32",
               torch.bfloat16: "flash_attention_fwd_bf16"}
-# the backward's kernel name for each dtype (one source for both)
-B2_NAMES = fa.BWD_NAMES
-B2_SOURCE = "flash_attention_bwd"
+# the backward's source, C entry and kernel name for each dtype
+B2_SOURCES = fa.BWD_NAMES
 
 
 # rtc kernel vs its torch-language version on the card: float32
@@ -407,11 +412,22 @@ def build_kernels():
                      for lib in fa.LIBRARIES}})
     sass = {lib.name: sass_counts(lib) for lib in fa.LIBRARIES}
     _emit({"sass": sass})
-    bf16 = sass[K1_SOURCES[torch.bfloat16]]
-    if not bf16["HGMMA"] or not bf16["UTMALDG"]:
-        raise AssertionError("the bfloat16 attention kernel's SASS holds %d "
-                             "HGMMA and %d UTMALDG instructions"
-                             % (bf16["HGMMA"], bf16["UTMALDG"]))
+    for name in (K1_SOURCES[torch.bfloat16], B2_SOURCES[torch.bfloat16]):
+        if not sass[name]["HGMMA"] or not sass[name]["UTMALDG"]:
+            raise AssertionError("%s's SASS holds %d HGMMA and %d UTMALDG "
+                                 "instructions" % (name, sass[name]["HGMMA"],
+                                                   sass[name]["UTMALDG"]))
+    # every backward kernel at every head dim it is built for (a library
+    # an earlier process built has no log here)
+    b2 = {lib.name: ptxas_report(lib.build_log) for lib in fa.LIBRARIES
+          if lib.name in B2_SOURCES.values() and lib.build_seconds is not None}
+    _emit({"b2_registers": b2})
+    spills = {"%s:%s" % (lib, kern): rep["spill_bytes"]
+              for lib, kernels in b2.items() for kern, rep in kernels.items()
+              if rep["spill_bytes"]}
+    if spills or not all(b2.values()):
+        raise AssertionError("backward kernels spill %s (report %s)"
+                             % (spills, b2))
 
     version = mt.rtc.nvrtc_version()
     x = mt.nd.ones((3, 4), ctx=mt.gpu())
@@ -653,7 +669,7 @@ def imperative_bf16():
     copies = fa.flash_attention_fwd.padded_copies + fa.flash_attention_bwd.copies
     expect_launches("the bfloat16 attention call", launches,
                     **{K1_SOURCES[torch.bfloat16]: 1,
-                       B2_NAMES[torch.bfloat16]: 1})
+                       B2_SOURCES[torch.bfloat16]: 1})
     if copies:
         raise AssertionError("the bfloat16 attention call copied %d inputs"
                              % copies)
@@ -703,12 +719,16 @@ def check_backward(label, q, k, v, o, lse, causal, seed):
             for x, r in zip(grads, refs)]
     _emit({"check_bwd": label, "shape": [q.shape[0], q.shape[1], k.shape[1],
                                          q.shape[2], q.shape[3]],
-           "causal": causal, "dtype": str(dtype), "kernel": B2_NAMES[dtype],
+           "causal": causal, "dtype": str(dtype), "kernel": B2_SOURCES[dtype],
            "copies": copies, "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
            "max_abs": max(r.float().abs().max().item() for r in refs)})
-    if counts[B2_NAMES[dtype]] != 1 or sum(counts.values()) != 1 or copies:
-        raise AssertionError("%s %s backward launched %s with %d copies"
-                             % (label, dtype, counts, copies))
+    if counts[B2_SOURCES[dtype]] != 1 or sum(counts.values()) != 1:
+        raise AssertionError("%s %s backward launched %s"
+                             % (label, dtype, counts))
+    if copies != B2_COPIES.get((label, dtype), 0):
+        raise AssertionError("%s %s: the backward copied %d inputs, expected "
+                             "%d" % (label, dtype, copies,
+                                     B2_COPIES.get((label, dtype), 0)))
     for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
         if x.dtype != dtype or x.shape != r.shape:
             raise AssertionError("%s %s: %s is %s %s" % (
@@ -731,7 +751,7 @@ def check_autograd(label, q, k, v, causal, seed):
     fa.attention_reference(*plain, causal=causal)[0].backward(do)
     torch.cuda.synchronize()
     if launches[0][K1_SOURCES[torch.float32]] != 1 or \
-            launches[1][B2_NAMES[torch.float32]] != 1:
+            launches[1][B2_SOURCES[torch.float32]] != 1:
         raise AssertionError("FlashAttention %s launched %s" % (label,
                                                                 launches))
     errs = [(x.grad - y.grad).abs().max().item()
@@ -785,6 +805,31 @@ def check_kernels():
                 serving_err[dtype] = err
                 serving_bwd_err[dtype] = bwd_err
     return serving_err, serving_bwd_err
+
+
+def check_determinism():
+    """B2 launched twice on the same inputs at the serving shapes, in each
+    dtype: bitwise the same dQ, dK and dV (no float atomics, no order of
+    sums that changes between launches)."""
+    _phase("determinism")
+    label, b, t_q, t_kv, h, d, causal = CHECKS[0]
+    for dtype in DTYPES:
+        q, k, v = _qkv(b, t_q, t_kv, h, d, dtype, seed=200)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        g = torch.Generator(device="cuda").manual_seed(201)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
+        fa.reset_counts()
+        first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_bwd.kernel_launches[B2_SOURCES[dtype]]
+        same = [torch.equal(x, y) for x, y in zip(first, second)]
+        _emit({"determinism": label, "dtype": str(dtype),
+               "kernel": B2_SOURCES[dtype], "launches": launches,
+               "bitwise_equal": dict(zip(("dq", "dk", "dv"), same))})
+        if launches != 2 or not all(same):
+            raise AssertionError("%s backward launched %d times, bitwise "
+                                 "equal: %s" % (dtype, launches, same))
 
 
 def _random_params(symbol, shapes, rng):
@@ -966,14 +1011,17 @@ def train():
             initializer=mt.init.Xavier(**TRAIN_INIT), eval_metric=metric,
             batch_end_callback=on_batch)
     launches = launch_counts()
+    copies = fa.flash_attention_fwd.padded_copies + fa.flash_attention_bwd.copies
     peak = torch.cuda.max_memory_allocated()
     n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
+    if copies:
+        raise AssertionError("training copied %d attention inputs" % copies)
     expect_launches("training", launches, **{
         K1_SOURCES[torch.float32]: layers * n_steps,
-        B2_NAMES[torch.float32]: layers * n_steps})
+        B2_SOURCES[torch.float32]: layers * n_steps})
     for i, step in enumerate(steps):
         if step["launches"][K1_SOURCES[torch.float32]] != layers or \
-                step["launches"][B2_NAMES[torch.float32]] != layers:
+                step["launches"][B2_SOURCES[torch.float32]] != layers:
             raise AssertionError("step %d launched %s" % (i, step["launches"]))
     per_epoch = [math.exp(statistics.fmean(
         math.log(s["perplexity"]) for s in steps if s["epoch"] == e))
@@ -1027,7 +1075,7 @@ def train_step_vs_cpu(x, y):
         if ctx.device_type == "gpu":
             expect_launches("the compared step", launch_counts(), **{
                 K1_SOURCES[torch.float32]: CPU_LAYERS,
-                B2_NAMES[torch.float32]: CPU_LAYERS})
+                B2_SOURCES[torch.float32]: CPU_LAYERS})
         grads.append({n: exe.grad_dict[n].data.cpu() for n in params})
         del exe
     card, host = grads
@@ -1085,7 +1133,7 @@ def times(latencies):
             out, leaves, do_t, retain_graph=True))
         bound_ms, bound_by = attention_bound(b, t, t, h, d, True, dtype,
                                              backward=True)
-        line = {"kernel": B2_NAMES[dtype], "dtype": str(dtype),
+        line = {"kernel": B2_SOURCES[dtype], "dtype": str(dtype),
                 "shape": [b, t, t, h, d], "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "x_library": ms / library_ms,
@@ -1193,6 +1241,7 @@ def main():
     card = environment()
     compile_record = build_kernels()
     serving_err, serving_bwd_err = check_kernels()
+    check_determinism()
     check_rtc()
     paths = {}
     paths["serve"], latencies = serve()
@@ -1212,7 +1261,8 @@ def main():
             paths, "serve" if f32 else "imperative_bf16",
             serving_err[dtype], card, str(dtype)))
         lines.append(_kernel_line(
-            B2_NAMES[dtype], "mxnet_tpu_torch/csrc/%s.cu" % B2_SOURCE,
+            B2_SOURCES[dtype],
+            "mxnet_tpu_torch/csrc/%s.cu" % B2_SOURCES[dtype],
             "mxnet_tpu/op/pallas/flash_attention.py:165",
             records["B2", dtype], paths,
             "train" if f32 else "imperative_bf16", serving_bwd_err[dtype],

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, bound with ``ctypes``.
 The library lands in ``mxnet_tpu_torch/_build`` under a name that carries
-a digest of its source and flags: an edited source is rebuilt, an
-unchanged one is loaded as it stands.  Nothing is built at import time.
+a digest of its source, the headers it includes and the flags: an edited
+source or header is rebuilt, an unchanged one is loaded as it stands.
+Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,31 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+
+# a header included by quotes: resolved beside the file that includes it
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_digest(source: Path) -> str:
+    """A digest of ``source``, of every header it includes by quotes
+    (recursively, each once) and of ``NVCC_FLAGS``."""
+    digest = hashlib.sha256()
+    seen = set()
+
+    def add(path: Path) -> None:
+        path = path.resolve()
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        digest.update(text)
+        for name in _LOCAL_INCLUDE.findall(text.decode()):
+            add(path.parent / name)
+
+    add(Path(source))
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -70,9 +97,7 @@ class CudaLibrary:
 
     def _build(self) -> Path:
         src = self.source
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / ("lib%s-%s.so" % (self.name, digest))
+        out = BUILD_DIR / ("lib%s-%s.so" % (self.name, source_digest(src)))
         if out.exists():
             return out
         BUILD_DIR.mkdir(exist_ok=True)

@@ -17,10 +17,16 @@ function: the port's copy of
 to return the per-row logsumexp.
 
 ``flash_attention_bwd`` is the port of the JAX package's backward,
-``_bwd_impl`` (the ``custom_vjp`` backward of ``flash_attention``): one
-CUDA source, ``mxnet_tpu_torch/csrc/flash_attention_bwd.cu``, templated
-over both dtypes.  ``attention_bwd_reference`` is its plain version, a
-port of ``_bwd_impl`` as a loop over key blocks.  :class:`FlashAttention`
+``_bwd_impl`` (the ``custom_vjp`` backward of ``flash_attention``).  The
+dtype picks its kernel too:
+
+- bfloat16: ``mxnet_tpu_torch/csrc/flash_attention_bwd_bf16.cu``, every
+  product on the tensor cores (``wgmma``), fed by TMA;
+- float32: ``mxnet_tpu_torch/csrc/flash_attention_bwd_f32.cu``, true
+  float32 products on the CUDA cores, with ``cp.async``-staged tiles.
+
+``attention_bwd_reference`` is its plain version, a port of
+``_bwd_impl`` as a loop over key blocks.  :class:`FlashAttention`
 pairs the two as a ``torch.autograd.Function``; :func:`flash_attention`
 applies it.
 
@@ -41,10 +47,12 @@ from .build import CudaLibrary
 
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_fwd",
            "flash_attention_bwd", "attention_reference",
-           "attention_bwd_reference", "kernel_route", "LIBRARIES"]
+           "attention_bwd_reference", "kernel_route", "bwd_route",
+           "LIBRARIES"]
 
 MAX_HEAD_DIM = 128
 _MAX_Q_TILES = 65535     # the kernels' grid limit on query tiles
+_BWD_TILE = 64           # rows of the backward kernels' smallest tile
 # the copies and TMA read 16-byte vectors: base addresses and strides
 # must be multiples of this many bytes
 _ALIGN = 16
@@ -110,24 +118,32 @@ _KERNELS = {
 }
 
 
-def _declare_bwd(lib):
-    for symbol in _BWD_SYMBOLS.values():
+def _declare_bwd(symbol):
+    def declare(lib):
         fn = getattr(lib, symbol)
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+        size = getattr(lib, symbol + "_workspace")
+        size.argtypes = [ctypes.c_int] * 4
+        size.restype = ctypes.c_longlong
+        lib.mxtt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_cuda_error_string.restype = ctypes.c_char_p
+    return declare
 
 
-# the backward: one source, one C entry (and one kernel name) per dtype
-_BWD_LIBRARY = CudaLibrary("flash_attention_bwd", _declare_bwd)
+# the backward: one source and C entry per dtype, named as the kernel
 BWD_NAMES = {torch.float32: "flash_attention_bwd_f32",
              torch.bfloat16: "flash_attention_bwd_bf16"}
-_BWD_SYMBOLS = {dt: "mxtt_" + name for dt, name in BWD_NAMES.items()}
+_BWD_LIBRARIES = {dt: CudaLibrary(name, _declare_bwd("mxtt_" + name))
+                  for dt, name in BWD_NAMES.items()}
+# which of q, k, v, O, dO each backward kernel reads by 16-byte vectors
+# (TMA for bfloat16, cp.async for float32); the others it reads by element
+_BWD_VECTOR_READS = {torch.bfloat16: (False, True, True, False, True),
+                     torch.float32: (True, True, True, False, True)}
 LIBRARIES = tuple(kern.library for kern in _KERNELS.values()) \
-    + (_BWD_LIBRARY,)
+    + tuple(_BWD_LIBRARIES.values())
 
 
 def _needs_copy(x):
@@ -273,6 +289,36 @@ def attention_bwd_reference(q, k, v, o, lse, do, causal=False, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bwd_route(q, k, v, o, do):
+    """The kernel ``flash_attention_bwd`` launches for these inputs, and
+    which of q, k, v, o, do it first copies; raises on what no kernel
+    takes.
+
+    A kernel reads some inputs by 16-byte vectors (bfloat16: k, v and do
+    through TMA; float32: q, k, v and do through ``cp.async``): such an
+    input is copied when its base address or a stride is not a multiple
+    of 16 bytes (head_dim 20 in bfloat16, for one).  Any input whose last
+    dimension is not contiguous is copied too.  Works on any device (meta
+    tensors included), so the decision can be checked without a card."""
+    xs = (q, k, v, o, do)
+    name = BWD_NAMES.get(q.dtype)
+    if name is None or any(x.dtype != q.dtype for x in xs):
+        raise MXNetError("flash attention backward kernel takes float32 or "
+                         "bfloat16 q, k, v, o, do of one dtype; got %s"
+                         % [str(x.dtype) for x in xs])
+    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+        raise MXNetError("flash attention backward kernel takes 1 <= "
+                         "head_dim <= %d; got %d" % (MAX_HEAD_DIM,
+                                                     q.shape[-1]))
+    for t in (q.shape[1], k.shape[1]):
+        if -(-t // _BWD_TILE) > _MAX_Q_TILES:
+            raise MXNetError("flash attention backward kernel takes t <= %d;"
+                             " got %d" % (_MAX_Q_TILES * _BWD_TILE, t))
+    vector = _BWD_VECTOR_READS[q.dtype]
+    return name, tuple(x.stride(-1) != 1 or (vec and _needs_copy(x))
+                       for x, vec in zip(xs, vector))
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     """The backward of :func:`flash_attention_fwd`: ``(dq, dk, dv)`` from
     the forward's inputs, its ``(o, lse)`` and the output gradient
@@ -280,9 +326,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
 
     CUDA tensors run the hand-written kernel of their dtype or raise:
     there is no fallback.  The kernel reads every input through its
-    strides; one whose last dimension is not contiguous is first copied
-    once (counted in ``flash_attention_bwd.copies``).  CPU tensors run
-    the plain version.
+    strides; one that :func:`bwd_route` says it cannot read is first
+    copied once, as :func:`flash_attention_fwd` copies (counted in
+    ``flash_attention_bwd.copies``).  The same inputs give bitwise the
+    same gradients every launch.  CPU tensors run the plain version.
     """
     _check_shapes(q, k, v)
     b, t_q, h, d = q.shape
@@ -302,14 +349,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     if q.device.type != "cuda":
         raise MXNetError("flash attention backward runs on cuda or cpu "
                          "tensors; got %s" % q.device)
-    name = BWD_NAMES.get(q.dtype)
-    if name is None or any(x.dtype != q.dtype for x in (k, v, o, do)):
-        raise MXNetError("flash attention backward kernel takes float32 or "
-                         "bfloat16 q, k, v, o, do of one dtype; got %s"
-                         % [str(x.dtype) for x in (q, k, v, o, do)])
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise MXNetError("flash attention backward kernel takes 1 <= "
-                         "head_dim <= %d; got %d" % (MAX_HEAD_DIM, d))
+    name, copies = bwd_route(q, k, v, o, do)
     if q.numel() == 0 or k.numel() == 0:
         return (torch.zeros(q.shape, dtype=q.dtype, device=q.device),
                 torch.zeros(k.shape, dtype=k.dtype, device=k.device),
@@ -318,26 +358,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    ins = [x if x.stride(-1) == 1 else x.contiguous()
-           for x in (q, k, v, o, do)]
-    copies = sum(x is not y for x, y in zip(ins, (q, k, v, o, do)))
+    ins = [_padded_copy(x) if c else x
+           for x, c in zip((q, k, v, o, do), copies)]
     lse = lse.float().contiguous()
-    delta = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
+    lib = _BWD_LIBRARIES[q.dtype].load()
+    symbol = "mxtt_" + name
+    workspace = torch.empty(getattr(lib, symbol + "_workspace")(b, h, t_q, d),
+                            dtype=torch.uint8, device=q.device)
     strides = (ctypes.c_longlong * 15)(*(st for x in ins
                                          for st in x.stride()[:3]))
-    lib = _BWD_LIBRARY.load()
     with torch.cuda.device(q.device):
-        err = getattr(lib, _BWD_SYMBOLS[q.dtype])(
+        err = getattr(lib, symbol)(
             *(x.data_ptr() for x in ins), lse.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, h, t_q, t_kv,
-            d, strides, float(scale), int(bool(causal)),
+            dk.data_ptr(), dv.data_ptr(), workspace.data_ptr(), b, h, t_q,
+            t_kv, d, strides, float(scale), int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise MXNetError("flash attention backward kernel %s launch failed: "
                          "%s (error %d)" % (name, lib.mxtt_cuda_error_string(
                              err).decode(), err))
     flash_attention_bwd.kernel_launches[name] += 1
-    flash_attention_bwd.copies += copies
+    flash_attention_bwd.copies += sum(copies)
     return dq, dk, dv
 
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from mxnet_tpu.op.pallas import flash_attention as jax_flash_attention
 from mxnet_tpu.op.pallas.flash_attention import _bwd_impl
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.op.kernels import build
 from mxnet_tpu_torch.op.kernels import flash_attention as fa
 
 # tests/test_attention.py's test_flash_gradients_match_reference: both
@@ -130,7 +131,12 @@ def test_wrapper_checks_and_plain_route():
     meta = [x.to("meta") for x in (q, k, v, o, lse, g)]
     with pytest.raises(MXNetError, match="cuda or cpu"):
         fa.flash_attention_bwd(*meta)
-    assert fa.LIBRARIES[-1].source.name == "flash_attention_bwd.cu"
+    # one source per dtype, named as its kernel
+    sources = {lib.name: lib.source.name for lib in fa.LIBRARIES}
+    for name in fa.BWD_NAMES.values():
+        assert sources[name] == name + ".cu" and \
+            (build.CSRC / sources[name]).exists()
+    assert not (build.CSRC / "flash_attention_bwd.cu").exists()
 
 
 def test_autograd_function_under_no_grad_is_the_forward():
@@ -138,3 +144,119 @@ def test_autograd_function_under_no_grad_is_the_forward():
     with torch.inference_mode():
         out = fa.flash_attention(q, k, v, True, None)
     torch.testing.assert_close(out, fa.attention_reference(q, k, v, True)[0])
+
+
+def _bwd_inputs(dtype, device, b=1, t=8, h=3, d=64, fused=False):
+    """q, k, v, o, do as the training path hands them to the backward:
+    q, k, v the views of one fused projection, o and do contiguous."""
+    if fused:
+        qkv = torch.zeros(b, t, 3, h, d, dtype=dtype, device=device)
+        q, k, v = qkv.unbind(2)
+    else:
+        q = k = v = torch.zeros(b, t, h, d, dtype=dtype, device=device)
+    o = torch.zeros(b, t, h, d, dtype=dtype, device=device)
+    return q, k, v, o, torch.zeros_like(o)
+
+
+# (case, dtype, inputs -> (q, k, v, o, do), the copies the route makes)
+_BWD_COPY_CASES = [
+    # the serving head dim, fused or not, copies nothing in either dtype
+    ("fused_head_dim_64", torch.bfloat16,
+     lambda dt, dev: _bwd_inputs(dt, dev, fused=True), (False,) * 5),
+    ("fused_head_dim_64", torch.float32,
+     lambda dt, dev: _bwd_inputs(dt, dev, fused=True), (False,) * 5),
+    ("head_dim_40", torch.bfloat16,
+     lambda dt, dev: _bwd_inputs(dt, dev, d=40), (False,) * 5),
+    # head_dim 20: bfloat16 strides of 40 bytes; TMA reads k, v, do, and
+    # the preprocess reads q and o by element
+    ("fused_head_dim_20", torch.bfloat16,
+     lambda dt, dev: _bwd_inputs(dt, dev, d=20, fused=True),
+     (False, True, True, False, True)),
+    ("head_dim_20", torch.bfloat16,
+     lambda dt, dev: _bwd_inputs(dt, dev, d=20),
+     (False, True, True, False, True)),
+    # float32 rows of 80 bytes are 16-byte aligned
+    ("fused_head_dim_20", torch.float32,
+     lambda dt, dev: _bwd_inputs(dt, dev, d=20, fused=True), (False,) * 5),
+    # float32 head_dim 5: 20-byte rows; cp.async reads q, k, v, do
+    ("head_dim_5", torch.float32,
+     lambda dt, dev: _bwd_inputs(dt, dev, d=5),
+     (True, True, True, False, True)),
+    # an output gradient whose last dimension is not contiguous
+    ("strided_do", torch.float32,
+     lambda dt, dev: _bwd_inputs(dt, dev)[:4]
+     + (torch.zeros(1, 8, 64, 3, dtype=dt, device=dev).transpose(2, 3),),
+     (False, False, False, False, True)),
+]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("case,dtype,make,copies", _BWD_COPY_CASES,
+                         ids=["%s-%s" % (c[0], str(c[1])[6:])
+                              for c in _BWD_COPY_CASES])
+def test_bwd_route_picks_the_kernel_and_its_copies(case, dtype, make, copies,
+                                                   device):
+    name, route_copies = fa.bwd_route(*make(dtype, device))
+    assert name == fa.BWD_NAMES[dtype] == (
+        "flash_attention_bwd_bf16" if dtype == torch.bfloat16
+        else "flash_attention_bwd_f32")
+    assert route_copies == copies
+
+
+@pytest.mark.parametrize("case", ["float16", "mixed_dtypes", "head_dim_129",
+                                  "head_dim_0", "t_past_grid"])
+def test_bwd_route_refuses_what_no_kernel_runs(case):
+    q, k, v, o, do = _bwd_inputs(torch.float32, "meta")
+    if case == "float16":
+        q, k, v, o, do = (x.half() for x in (q, k, v, o, do))
+    elif case == "mixed_dtypes":
+        do = do.to(torch.bfloat16)
+    elif case in ("head_dim_129", "head_dim_0"):
+        d = 129 if case == "head_dim_129" else 0
+        q, k, v, o, do = _bwd_inputs(torch.bfloat16, "meta", d=d)
+    else:
+        # 65535 tiles of 64 rows; one row fewer fits
+        q, k, v, o, do = _bwd_inputs(torch.bfloat16, "meta", t=65535 * 64 + 1)
+        fa.bwd_route(*(x[:, :-1] for x in (q, k, v, o, do)))
+    with pytest.raises(MXNetError):
+        fa.bwd_route(q, k, v, o, do)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_copy_arithmetic_of_the_backward(dtype):
+    """What the kernels compute on the wrapper's zero-padded copies (and
+    what the bfloat16 kernels compute on q_s, zero-padded to their
+    width): with head_dim 20's scale, the padded columns add nothing, so
+    the first 20 columns are the unpadded gradients and the rest 0."""
+    q, k, v, g = (torch.from_numpy(x).to(dtype)
+                  for x in _inputs(5, 2, 40, 40, 3, 20))
+    scale = 1.0 / math.sqrt(20)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    want = fa.attention_bwd_reference(q, k, v, o, lse, g, causal=True)
+    padded = [fa._padded_copy(x) for x in (q, k, v, o, g)]
+    got = fa.attention_bwd_reference(*padded[:4], lse, padded[4],
+                                     causal=True, scale=scale)
+    for x, w in zip(got, want):
+        assert x.shape[-1] == 24 and x.dtype == dtype
+        assert torch.equal(x[..., :20], w)
+        assert not x[..., 20:].any()
+
+
+def test_library_digest_covers_included_headers(tmp_path):
+    """A source's library is named by a digest of the source and of the
+    headers it includes by quotes, so an edited header rebuilds it."""
+    (tmp_path / "inner.cuh").write_text("// inner v1\n")
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    src = tmp_path / "kern.cu"
+    src.write_text('#include "outer.cuh"\n#include <cuda_runtime.h>\n')
+    first = build.source_digest(src)
+    assert build.source_digest(src) == first
+    (tmp_path / "inner.cuh").write_text("// inner v2\n")
+    second = build.source_digest(src)
+    assert second != first
+    src.write_text('#include "outer.cuh"\n#include <cuda_runtime.h>\n// x\n')
+    assert build.source_digest(src) not in (first, second)
+    # the bfloat16 kernels share csrc/hopper.cuh
+    for name in ("flash_attention_fwd_bf16", "flash_attention_bwd_bf16"):
+        assert '#include "hopper.cuh"' in (build.CSRC / (name + ".cu")) \
+            .read_text()

@@ -41,7 +41,7 @@ def _group(name):
     low = name.lower()
     if "flash_fwd" in name:
         return "K1 flash_attention_fwd"
-    if "bwd_dq" in name or "bwd_dkdv" in name or "bwd_delta" in name:
+    if "flash_bwd" in name:   # flash_bwd_{delta,prep,dkdv,dq}_{f32,bf16}
         return "B2 flash_attention_bwd"
     if "gemm" in low or "xmma" in low or "cutlass" in low:
         return "matrix_products"
