@@ -9,7 +9,8 @@ Phases, each of which raises (a non-zero exit, no result line) when it
 fails:
 
 1. environment: the card's name and power limit; TF32 off for matrix
-   products and convolutions, so float32 means float32;
+   products and convolutions, so float32 means float32, and bfloat16
+   products summed in float32;
 2. build: every CUDA kernel of the port, from ``mxnet_tpu_torch/csrc``,
    one nvcc per source, all at once, with each kernel's registers and
    spills (none allowed in the backward kernels); the SASS of both
@@ -29,27 +30,43 @@ fails:
    ``language="torch"`` plain version on the card: ``tests/test_rtc.py``'s
    three cases, explicit grid and block dims, bfloat16, outputs that are
    strided views or of another dtype, and a push at new shapes;
-5. serve: the transformer LM at GPT-2 small's published widths, random
+5. casts: float32 -> uint8/int8/int32 ``Cast`` and ``astype`` on the
+   card, saturating with NaN to 0, exactly as the JAX package's;
+6. serve: the transformer LM at GPT-2 small's published widths, random
    weights from a seed, saved as ``-symbol.json`` + ``.params`` and
    loaded by ``Predictor.from_checkpoint`` onto the card; three requests
    of 4 x 1024 tokens, with each kernel's launches counted, and the
    logits held against the port's own CPU run of one request;
-6. imperative: one GPT-2-small block built only from ``mt.nd`` calls on
+7. imperative: one GPT-2-small block built only from ``mt.nd`` calls on
    ``mt.gpu()`` NDArrays at 4 x 1024 tokens, its GELU an ``mt.rtc``
    CUDA kernel, with each kernel's launches counted and the result held
    against the same calls on ``mt.cpu()`` NDArrays; then one bfloat16
    ``_contrib_DotProductAttention`` call on ``mt.gpu()`` NDArrays at the
    serving shapes, recorded by ``mt.autograd`` and backpropagated, which
    launches the bfloat16 forward and backward kernels once each;
-7. train: ``Module.fit`` trains the LM at GPT-2 small's widths and full
+8. train: ``Module.fit`` trains the LM at GPT-2 small's widths and full
    depth on the card (Adam, batch 4 x 1024 tokens, TRAIN_EPOCHS epochs of
-   TRAIN_BATCHES batches of memorizable cyclic token sequences), with
-   12 forward and 12 backward attention launches asserted each step, no
-   input copied, and the perplexity asserted to fall; step time, tokens/s
-   and peak device memory; then one step's every parameter gradient held
+   TRAIN_BATCHES batches of memorizable cyclic token sequences) on the
+   classic executor path (``MXTPU_MODULE_FUSED=never``), with 12 forward
+   and 12 backward attention launches asserted each step, no input
+   copied, and the perplexity asserted to fall; step time, tokens/s and
+   peak device memory; then one step's every parameter gradient held
    against the port's CPU run of the same step (depth cut to 2 layers
    there);
-8. times: each kernel, its plain version and the PyTorch library call
+9. train_fused: the same cell through Module's default policy on the
+   card, the fused Trainer, whose step is captured once in a CUDA graph
+   and replayed: one capture and a replay a step after it, the kernels'
+   launches of a replayed step counted in a ``torch.profiler`` trace
+   (12 K1 and 12 B2), the parameters after its first two steps held
+   against the classic phase's, the perplexity's fall; then
+   train_fused_bf16: the same with ``compute_dtype="bfloat16"``, the
+   bfloat16 kernels in its replayed step, and its first step's float32
+   gradients held against the float32 fused step's;
+10. sentinel: the fused step's sentinel build through capture and
+   replays (the LM, depth cut to 2 blocks), and GPT-2's MLP block with a
+   Dropout: a NaN batch inside a replay leaves params and optimizer
+   state bitwise as they were, and every replay draws fresh masks;
+11. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
@@ -72,6 +89,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.op.kernels import build
@@ -102,6 +121,27 @@ PPL_FALL = 2.0
 # in another order: ~1e-6 apart, while a wrong gradient is off by 1e-2
 CPU_LAYERS = 2
 GRAD_REL_TOL = 1e-4
+# the fused float32 step against the classic one on the card, from the
+# same weights and batches, by relative norm per parameter after the
+# first step, and after the second (the first replay of the captured
+# step).  The same kernels; Adam's bias correction sqrt(1 - beta2^t) is
+# float32 in the fused rule (as in the JAX package's rule) and float64 in
+# the classic in-place update, 6.4e-6 apart at t = 1 (1 - 0.999 loses
+# digits in float32), so a bias that starts at 0 is that far apart after
+# one step and up to twice that after two (the CPU run: 6.7e-6, 9.3e-6)
+FUSED_PARAM_TOL = (1e-5, 2e-5)
+# one step's float32 master gradients with bfloat16 compute against the
+# float32 fused step's, by relative norm per parameter.  The port's CPU
+# run at GPT-2 small's widths: 1.3e-2 at worst with 2 blocks, 2.2e-2 with
+# 12 (median 1.9e-2; 128 tokens, batch 1).  On the card the port's step
+# sums bfloat16 products in float32; with cuBLAS's bfloat16 split sums
+# (PyTorch's default) they were 6.3e-2 apart.  A wrong gradient is off by
+# order 1
+BF16_GRAD_TOL = 5e-2
+# the sentinel phase: the LM at GPT-2 small's widths cut to this depth,
+# and GPT-2's MLP block with a Dropout as a float-input model
+SENTINEL_LAYERS = 2
+DROPOUT_P = 0.1
 # H100 SXM peaks (NVIDIA data sheet; dense, at the full 700 W limit):
 # device memory, and arithmetic per dtype (float32 on the CUDA cores,
 # bfloat16 on the tensor cores)
@@ -161,6 +201,19 @@ K1_SOURCES = {torch.float32: "flash_attention_fwd_f32",
               torch.bfloat16: "flash_attention_fwd_bf16"}
 # the backward's source, C entry and kernel name for each dtype
 B2_SOURCES = fa.BWD_NAMES
+# each kernel's main device function, by source: what a profiler trace
+# names it (the preprocesses flash_bwd_delta_f32 and flash_bwd_prep_bf16
+# have other names)
+DEVICE_KERNELS = {K1_SOURCES[torch.float32]: "flash_fwd_f32",
+                  K1_SOURCES[torch.bfloat16]: "flash_fwd_bf16",
+                  B2_SOURCES[torch.float32]: "flash_bwd_f32",
+                  B2_SOURCES[torch.bfloat16]: "flash_bwd_bf16"}
+# float32 -> integer casts of the JAX package's astype (saturating, NaN
+# to 0), as its CPU run gives them for CAST_INPUT
+CAST_INPUT = [-1.7, 2.7, 300.0, float("nan"), 3e9, -3e9]
+CAST_EXPECTED = {"uint8": [0, 2, 255, 0, 255, 0],
+                 "int8": [-1, 2, 127, 0, 127, -128],
+                 "int32": [-1, 2, 300, 0, 2147483647, -2147483648]}
 
 
 # rtc kernel vs its torch-language version on the card: float32
@@ -343,10 +396,15 @@ def environment():
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # PyTorch's own setting, left as a user has it: the port's step sums
+    # bfloat16 products in float32 by itself (train() asserts it unchanged)
     _emit({"card": card, "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
-                    "cudnn": torch.backends.cudnn.allow_tf32}})
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "bf16_reduced_precision_reduction":
+               torch.backends.cuda.matmul
+               .allow_bf16_reduced_precision_reduction})
     return card
 
 
@@ -554,6 +612,25 @@ def check_rtc():
     results["float64_output"] = _push_checked(*k, [x], [wide], [ref], f32)
     _emit({"rtc_check": results})
     return results
+
+
+def check_casts():
+    """Float32 -> integer ``Cast`` and ``astype`` on the card, against
+    the JAX package's saturating results (CUDA's conversions are not the
+    CPU's)."""
+    _phase("casts")
+    x = mt.nd.array(np.array(CAST_INPUT, np.float32), ctx=mt.gpu())
+    got = {}
+    for dtype, want in CAST_EXPECTED.items():
+        for how, out in (("Cast", mt.nd.Cast(x, dtype=dtype)),
+                         ("astype", x.astype(dtype))):
+            if out.data.device.type != "cuda":
+                raise AssertionError("%s ran on %s" % (how, out.data.device))
+            got["%s %s" % (how, dtype)] = out.asnumpy().tolist()
+            if got["%s %s" % (how, dtype)] != want:
+                raise AssertionError("%s to %s gave %s, expected %s"
+                                     % (how, dtype, got, want))
+    _emit({"casts": CAST_INPUT, "results": got})
 
 
 def imperative_block(ctx, weights, x, gelu):
@@ -938,30 +1015,46 @@ def serve():
     return launches, latencies
 
 
-def cyclic_tokens(n, rng):
+def cyclic_tokens(n, rng, dtype=np.float32):
     """``n`` memorizable sequences of seq_len + 1 tokens, each counting up
     by one from a random start, modulo the vocabulary (the data of
     ``tests/test_models.py::test_transformer_lm_learns``); returns the
-    inputs and the next tokens, float32 as NDArrayIter takes them."""
+    inputs and the next tokens, float32 as NDArrayIter takes them (or
+    ``dtype``)."""
     t, vocab = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
     seqs = (rng.integers(0, vocab, n)[:, None] + np.arange(t + 1)) % vocab
-    return seqs[:, :t].astype(np.float32), seqs[:, 1:].astype(np.float32)
+    return seqs[:, :t].astype(dtype), seqs[:, 1:].astype(dtype)
 
 
 TRAIN_INIT = dict(factor_type="in", magnitude=2.0)     # Xavier's
 
 
-def gpt2_train_cell():
+def gpt2_train_cell(fused=False, compute_dtype=None):
     """The trained cell: the LM at GPT-2 small's widths and full depth in
     a Module on the card, bound, initialized (Xavier, from SEED) and with
     Adam installed, and its NDArrayIter of TRAIN_BATCHES batches of
-    cyclic tokens.  Returns (module, iterator, the inputs, the labels,
-    set-up seconds)."""
+    cyclic tokens.  ``fused`` takes Module's default policy on a gpu
+    context, the fused Trainer; else ``MXTPU_MODULE_FUSED=never``, the
+    classic executor path.  Under a bfloat16 ``compute_dtype`` the tokens
+    are int32: the step casts every floating input to the compute dtype,
+    as the JAX package's does, and bfloat16 holds integers exactly only
+    up to 256.  Returns (module, iterator, the inputs, the labels, set-up
+    seconds)."""
     X, Y = cyclic_tokens(BATCH * TRAIN_BATCHES,
-                         np.random.default_rng(SEED + 3))
+                         np.random.default_rng(SEED + 3),
+                         np.int32 if compute_dtype else np.float32)
     symbol = mt.models.transformer.get_symbol(**GPT2_SMALL)
     data = mt.io.NDArrayIter(X, Y, batch_size=BATCH)     # on the card
-    mod = mt.mod.Module(symbol, context=mt.gpu())
+    policy = os.environ.pop("MXTPU_MODULE_FUSED", None)
+    if not fused:
+        os.environ["MXTPU_MODULE_FUSED"] = "never"
+    try:
+        mod = mt.mod.Module(symbol, context=mt.gpu(),
+                            compute_dtype=compute_dtype)
+    finally:
+        os.environ.pop("MXTPU_MODULE_FUSED", None)
+        if policy is not None:
+            os.environ["MXTPU_MODULE_FUSED"] = policy
     mt.random.seed(SEED)
     t0 = time.perf_counter()
     mod.bind(data.provide_data, data.provide_label)
@@ -969,24 +1062,104 @@ def gpt2_train_cell():
     mod.init_optimizer(optimizer="adam",
                        optimizer_params={"learning_rate": TRAIN_LR})
     torch.cuda.synchronize()
+    if fused != (mod._trainer is not None):
+        raise AssertionError("Module took the %s path"
+                             % ("classic" if fused else "fused"))
     return mod, data, X, Y, time.perf_counter() - t0
 
 
-def train():
-    """The training slice: ``Module.fit`` trains the LM at GPT-2 small's
-    widths and full depth on the card.  Asserts 12 K1 and 12 B2 launches
-    (float32) each step and a falling perplexity; returns (launches, the
-    step record)."""
-    _phase("train")
-    t, layers = GPT2_SMALL["seq_len"], GPT2_SMALL["num_layers"]
-    # bound and initialized ahead, so fit's first step is a step alone
-    mod, data, X, Y, setup_s = gpt2_train_cell()
+def host_params(mod):
+    """The module's parameters, copied to the host."""
+    arg, _ = mod.get_params()
+    return {n: v.data.clone() for n, v in arg.items()}
 
-    steps = []
+
+def fused_step_grads(mod, x, y):
+    """One step's float32 gradients of the module's fused Trainer on the
+    batch ``(x, y)``, on the host, the state untouched."""
+    tr = mod._trainer
+    batch = tr._device_batch({"data": x, "softmax_label": y})
+    _, _, grads = tr._run_backward(tr.params, tr.aux, batch, None)
+    return {n: g.cpu() for n, g in grads.items()}
+
+
+def replayed_step_launches(mod, batch):
+    """One more step of a fused module, a replay of its CUDA graph, traced
+    by ``torch.profiler``; returns its attention kernel launches by source
+    name, counted by device kernel name in the trace (the wrappers count
+    a captured launch once, at capture, and never on a replay)."""
+    tr = mod._trainer
+    replays, before = tr.graph_replays, launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mod.forward(batch, is_train=True)
+        mod.update()
+        torch.cuda.synchronize()
+    if tr.graph_replays != replays + 1 or launch_counts() != before:
+        raise AssertionError("the traced step was not one replay: %d "
+                             "replays, launches %s then %s"
+                             % (tr.graph_replays - replays, before,
+                                launch_counts()))
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler recorded no device kernel")
+    return {src: sum(e.count for e in events if kern in e.key)
+            for src, kern in DEVICE_KERNELS.items()}
+
+
+def _rel_errors(got, want, steps):
+    """Relative error by parameter, the key third of each qkv bias apart:
+    its gradient is 0 but for rounding (softmax ignores a shift common to
+    a row's scores), and Adam divides that noise by its own size, so
+    there each side may step by up to lr a step; returns (errors, the
+    largest key-bias step)."""
+    h, rel, key_step = GPT2_SMALL["num_hidden"], {}, 0.0
+    for n, w in want.items():
+        g = got[n]
+        if n.endswith("_attn_qkv_bias"):
+            key_step = max(key_step, g[h:2 * h].abs().max().item(),
+                           w[h:2 * h].abs().max().item())
+            g, w = torch.cat([g[:h], g[2 * h:]]), torch.cat([w[:h], w[2 * h:]])
+        rel[n] = ((g - w).norm() / w.norm()).item()
+    if key_step > TRAIN_LR * steps:
+        raise AssertionError("a key bias moved %g in %d Adam steps of lr %g"
+                             % (key_step, steps, TRAIN_LR))
+    return rel, key_step
+
+
+def train(name="train", compute_dtype=None, reference=None):
+    """A training phase: ``Module.fit`` trains the LM at GPT-2 small's
+    widths and full depth on the card, TRAIN_EPOCHS epochs of
+    TRAIN_BATCHES batches.  ``train`` is the classic executor path,
+    ``train_fused`` the fused Trainer (float32), ``train_fused_bf16`` the
+    fused Trainer with bfloat16 compute.  Asserts 12 K1 and 12 B2
+    launches of the dtype's kernels each step (a fused step: launched by
+    its first step and captured by its second, then traced in a replay),
+    one capture and a replay a step after it, no input copied, and a
+    falling perplexity; the fused float32 phase's parameters after its
+    first two steps against ``reference`` (the classic phase's), and the
+    bfloat16 phase's first-step gradients against ``reference`` (the
+    float32 fused phase's).  Returns (launches, the step record, the
+    parameters after steps 1 and 2, the first step's gradients)."""
+    _phase(name)
+    mm = torch.backends.cuda.matmul
+    user_flags = (mm.allow_bf16_reduced_precision_reduction,
+                  mm.allow_fp16_reduced_precision_reduction)
+    fused = name != "train"
+    t, layers = GPT2_SMALL["seq_len"], GPT2_SMALL["num_layers"]
+    dtype = torch.bfloat16 if compute_dtype else torch.float32
+    k1, b2 = K1_SOURCES[dtype], B2_SOURCES[dtype]
+    # bound and initialized ahead, so fit's first step is a step alone
+    mod, data, X, Y, setup_s = gpt2_train_cell(fused, compute_dtype)
+    grads = fused_step_grads(mod, X[:BATCH], Y[:BATCH]) if fused else None
+
+    steps, snapshots = [], []
     last = {}
 
     def on_batch(param):
-        """Synchronise, then the step's time, perplexity and launches."""
+        """Synchronise, then the step's time, perplexity and launches;
+        the parameters after the first two steps."""
         torch.cuda.synchronize()
         now = time.perf_counter()
         m = param.eval_metric
@@ -999,9 +1172,14 @@ def train():
             "perplexity": math.exp((total - last["total"])
                                    / (count - last["count"])),
             "launches": {n: counts[n] - last["counts"][n] for n in counts}})
+        if len(steps) <= 2:
+            snapshots.append(host_params(mod))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
         last.update(t=now, total=total, count=count, counts=counts)
 
     metric = mt.metric.Perplexity(None)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     torch.cuda.synchronize()
@@ -1016,26 +1194,48 @@ def train():
     n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
     if copies:
         raise AssertionError("training copied %d attention inputs" % copies)
-    expect_launches("training", launches, **{
-        K1_SOURCES[torch.float32]: layers * n_steps,
-        B2_SOURCES[torch.float32]: layers * n_steps})
+    # what the wrappers count: every step on the classic path; on the
+    # fused path the eager first step and the capture of the second
+    counted = 2 if fused else n_steps
+    expect_launches(name, launches, **{k1: layers * counted,
+                                       b2: layers * counted})
     for i, step in enumerate(steps):
-        if step["launches"][K1_SOURCES[torch.float32]] != layers or \
-                step["launches"][B2_SOURCES[torch.float32]] != layers:
+        want = layers if i < counted else 0
+        if step["launches"][k1] != want or step["launches"][b2] != want:
             raise AssertionError("step %d launched %s" % (i, step["launches"]))
     per_epoch = [math.exp(statistics.fmean(
         math.log(s["perplexity"]) for s in steps if s["epoch"] == e))
         for e in range(TRAIN_EPOCHS)]
     step_s = statistics.median(s["s"] for s in steps[1:])
-    record = {"train": "gpt2-small", "batch": BATCH, "seq_len": t,
+    record = {name: "gpt2-small", "batch": BATCH, "seq_len": t,
               "layers": layers, "steps": n_steps, "optimizer": "adam",
-              "lr": TRAIN_LR, "setup_s": setup_s,
+              "lr": TRAIN_LR, "compute_dtype": str(dtype),
+              "path": "fused" if fused else "classic", "setup_s": setup_s,
               "first_step_s": steps[0]["s"], "step_s": step_s,
               "step_s_runs": [s["s"] for s in steps],
               "tokens_per_s": BATCH * t / step_s,
               "peak_memory_bytes": peak,
               "perplexity_by_step": [s["perplexity"] for s in steps],
               "perplexity_by_epoch": per_epoch, "launches": launches}
+    if fused:
+        tr = mod._trainer
+        record.update(capture_step_s=steps[1]["s"],
+                      replay_step_s=statistics.median(
+                          s["s"] for s in steps[2:]),
+                      graph_captures=tr.graph_captures,
+                      graph_replays=tr.graph_replays)
+        if (tr.graph_captures, tr.graph_replays) != (1, n_steps - 1):
+            raise AssertionError("%d captures and %d replays in %d steps"
+                                 % (tr.graph_captures, tr.graph_replays,
+                                    n_steps))
+        data.reset()
+        replayed = replayed_step_launches(mod, next(iter(data)))
+        record["replayed_step_launches"] = replayed
+        record["launch_count_method"] = (
+            "a replayed step traced by torch.profiler, kernels counted by "
+            "device name")
+        expect_launches("a replayed %s step" % name, replayed,
+                        **{k1: layers, b2: layers})
     _emit(record)
     if len(steps) != n_steps or not all(
             math.isfinite(p) for p in record["perplexity_by_step"]):
@@ -1043,9 +1243,41 @@ def train():
     if not per_epoch[-1] * PPL_FALL < per_epoch[0]:
         raise AssertionError("perplexity fell from %g to %g, not by %gx"
                              % (per_epoch[0], per_epoch[-1], PPL_FALL))
+    if reference is not None and not compute_dtype:
+        # the fused step (first eager, then a replay of its graph) against
+        # the classic path's, from the same weights and batches
+        for i, (got, want) in enumerate(zip(snapshots, reference)):
+            rel, key_step = _rel_errors(got, want, i + 1)
+            worst = max(rel, key=rel.get)
+            _emit({"fused_vs_classic_after_step": i + 1,
+                   "param_rel_err_max": rel[worst], "worst": worst,
+                   "key_bias_max_step": key_step})
+            if not rel[worst] <= FUSED_PARAM_TOL[i]:
+                raise AssertionError("after step %d the fused %s is %g from "
+                                     "the classic path's" % (i + 1, worst,
+                                                             rel[worst]))
+    if reference is not None and compute_dtype:
+        rel = {n: ((grads[n] - g).norm() / g.norm()).item()
+               for n, g in reference.items()}
+        worst = max(rel, key=rel.get)
+        record["grad_rel_err_vs_float32_max"] = rel[worst]
+        _emit({"bf16_grads_vs_float32": name, "grad_rel_err_max": rel[worst],
+               "worst": worst, "median": statistics.median(rel.values()),
+               "tolerance": BF16_GRAD_TOL})
+        if not rel[worst] <= BF16_GRAD_TOL:
+            raise AssertionError("bfloat16 gradients: %s is %g from float32"
+                                 % (worst, rel[worst]))
+    flags = (mm.allow_bf16_reduced_precision_reduction,
+             mm.allow_fp16_reduced_precision_reduction)
+    _emit({"reduced_precision_reduction": name, "bf16_fp16": flags})
+    if flags != user_flags:
+        raise AssertionError("%s left cuBLAS's reduced-precision flags at "
+                             "%s (they were %s)" % (name, flags, user_flags))
     del mod, data
-    record["max_grad_rel_err"] = train_step_vs_cpu(X[:BATCH], Y[:BATCH])
-    return launches, record
+    torch.cuda.empty_cache()
+    if not fused:
+        record["max_grad_rel_err"] = train_step_vs_cpu(X[:BATCH], Y[:BATCH])
+    return launches, record, snapshots, grads
 
 
 def train_step_vs_cpu(x, y):
@@ -1090,6 +1322,105 @@ def train_step_vs_cpu(x, y):
                              "%g (tolerance %g)" % (worst, rel[worst],
                                                     GRAD_REL_TOL))
     return rel[worst]
+
+
+def _mlp_block_symbol():
+    """GPT-2 small's MLP block as a float-input classifier, with a
+    Dropout: it draws random numbers inside the step, and a NaN batch
+    gives NaN gradients (token ids cannot: the embedding clamps them)."""
+    c = GPT2_SMALL["num_hidden"]
+    h = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=4 * c,
+                              name="mlp1")
+    h = mt.sym.Activation(h, act_type="gelu")
+    h = mt.sym.Dropout(h, p=DROPOUT_P)
+    h = mt.sym.FullyConnected(h, num_hidden=c, name="mlp2")
+    return mt.sym.SoftmaxOutput(h, name="softmax")
+
+
+def _state(tr):
+    """Clones of a trainer's params and optimizer state."""
+    return [v.clone() for v in list(tr.params.values()) + [
+        x for s in tr.opt_state.values() for x in (s or ())]]
+
+
+def sentinel():
+    """The sentinel build of the fused step, through capture and replays
+    on the card: the LM at GPT-2 small's widths with its depth cut to
+    SENTINEL_LAYERS (clean steps: no skip, the update counter on the
+    device advancing); then GPT-2's MLP block with a Dropout, where a NaN
+    batch inside a replay must leave params and optimizer state bitwise
+    as they were and count one skip, and where every replay must draw
+    fresh Dropout masks.  Returns the record."""
+    _phase("sentinel")
+    t = GPT2_SMALL["seq_len"]
+    rng = np.random.default_rng(SEED + 5)
+    record = {"sentinel": "skip"}
+    with mt.gpu():
+        lm = mt.parallel.Trainer(
+            mt.models.transformer.get_symbol(
+                **dict(GPT2_SMALL, num_layers=SENTINEL_LAYERS)),
+            mt.optimizer.Adam(learning_rate=TRAIN_LR,
+                              rescale_grad=1.0 / BATCH), sentinel="skip")
+    lm.bind({"data": (BATCH, t)}, {"softmax_label": (BATCH, t)})
+    mt.random.seed(SEED)
+    lm.init_params(mt.init.Xavier(**TRAIN_INIT))
+    x, y = cyclic_tokens(BATCH, rng)
+    for _ in range(4):
+        out = lm.step({"data": x, "softmax_label": y})[0]
+    torch.cuda.synchronize()
+    record["lm"] = {"layers": SENTINEL_LAYERS, "steps": 4,
+                    "captures": lm.graph_captures,
+                    "replays": lm.graph_replays,
+                    "skips": lm.sentinel_skips, "t": int(lm._sent["t"])}
+    if record["lm"] != dict(record["lm"], captures=1, replays=3, skips=0,
+                            t=4) or not torch.isfinite(out.data).all():
+        raise AssertionError("sentinel LM steps gave %s" % record["lm"])
+    del lm, out
+
+    rows, c = BATCH * t, GPT2_SMALL["num_hidden"]
+    xs = rng.standard_normal((rows, c), dtype=np.float32)
+    labels = rng.integers(0, c, rows).astype(np.float32)
+    clean = {"data": xs, "softmax_label": labels}
+    nan = {"data": np.full_like(xs, np.nan), "softmax_label": labels}
+    with mt.gpu():
+        tr = mt.parallel.Trainer(_mlp_block_symbol(), mt.optimizer.Adam(
+            learning_rate=1e-3, rescale_grad=1.0 / rows), sentinel="skip")
+    tr.bind({"data": (rows, c)}, {"softmax_label": (rows,)})
+    tr.init_params(mt.init.Xavier(**TRAIN_INIT))
+    tr.step(clean)                                   # eager
+    tr.step(clean)                                   # capture, replay
+    before = _state(tr)
+    out = tr.step(nan)[0]                            # replay
+    torch.cuda.synchronize()
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, _state(tr)))
+    skips, t_dev = tr.sentinel_skips, int(tr._sent["t"])
+    outs = [tr.step(clean)[0].data for _ in range(2)]      # replays
+    moved = not all(torch.equal(a, b) for a, b in zip(before, _state(tr)))
+    record["dropout_block"] = {
+        "captures": tr.graph_captures, "replays": tr.graph_replays,
+        "nan_step_unchanged": unchanged, "skips": skips,
+        "t_after_nan": t_dev, "nan_outputs": bool(torch.isnan(
+            out.data).all()), "moved_after": moved}
+    # every replay draws new masks: a zero-lr trainer's outputs differ
+    # from replay to replay on the same batch
+    with mt.gpu():
+        frozen = mt.parallel.Trainer(_mlp_block_symbol(),
+                                     mt.optimizer.SGD(learning_rate=0.0))
+    frozen.bind({"data": (rows, c)}, {"softmax_label": (rows,)})
+    frozen.init_params(mt.init.Xavier(**TRAIN_INIT))
+    probs = [frozen.step(clean)[0].data for _ in range(4)]
+    fresh = [not torch.equal(a, b) for a, b in zip(probs[1:], probs[2:])]
+    record["dropout_block"].update(fresh_masks_by_replay=fresh,
+                                   frozen_replays=frozen.graph_replays)
+    _emit(record)
+    if not (unchanged and skips == 1 and t_dev == 2 and moved
+            and record["dropout_block"]["nan_outputs"]
+            and tr.graph_captures == 1 and tr.graph_replays == 4
+            and frozen.graph_replays == 3 and all(fresh)):
+        raise AssertionError("sentinel phase gave %s" % record)
+    del tr, frozen, outs, probs
+    torch.cuda.empty_cache()
+    return record
 
 
 def times(latencies):
@@ -1221,12 +1552,23 @@ def rtc_times():
 
 
 def _kernel_line(name, source, replaces, rec, paths, main_path, err, card,
-                 dtype):
+                 dtype, trains=None):
+    """A kernel's record.  ``launches`` is what its wrapper counted on the
+    main path; a fused path's wrapper counts its eager first step and the
+    capture, and ``replayed_step_launches`` gives what one replay of the
+    captured step launched (a profiler trace), ``graph_replays`` how
+    often the path replayed it."""
     by_path = {path: counts[name] for path, counts in paths.items()}
     if not by_path[main_path]:
         raise AssertionError("%s was not launched on its path: %s"
                              % (name, by_path))
+    replayed = {path: {"replayed_step_launches":
+                       rec_["replayed_step_launches"][name],
+                       "graph_replays": rec_["graph_replays"]}
+                for path, rec_ in (trains or {}).items()
+                if rec_.get("replayed_step_launches", {}).get(name)}
     return {"name": name, "route": "cuda", "source": source,
+            "fused_replays_by_path": replayed,
             "replaces": replaces, "launches": by_path[main_path],
             "launches_by_path": by_path, "main_path": main_path,
             "max_abs_err": err, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1243,30 +1585,44 @@ def main():
     serving_err, serving_bwd_err = check_kernels()
     check_determinism()
     check_rtc()
+    check_casts()
     paths = {}
     paths["serve"], latencies = serve()
     paths["imperative"], _, _ = imperative()
     paths["imperative_bf16"], _ = imperative_bf16()
-    paths["train"], _ = train()
+    trains = {}
+    paths["train"], trains["train"], first, _ = train()
+    paths["train_fused"], trains["train_fused"], _, grads = train(
+        "train_fused", reference=first)
+    del first
+    paths["train_fused_bf16"], trains["train_fused_bf16"], _, _ = train(
+        "train_fused_bf16", "bfloat16", reference=grads)
+    del grads
+    _emit({"train_steps": {name: {k: rec.get(k) for k in (
+        "path", "compute_dtype", "step_s", "replay_step_s", "capture_step_s",
+        "first_step_s", "tokens_per_s", "peak_memory_bytes",
+        "perplexity_by_epoch")} for name, rec in trains.items()},
+        "card": card})
+    sentinel()
     records = times(latencies)
     gelu = rtc_times()
     lines = []
     for dtype in DTYPES:
         # the path that carries each kernel of this dtype: serving and
-        # training (float32), the bfloat16 attention call
+        # classic training (float32), fused bfloat16 training
         f32 = dtype == torch.float32
         lines.append(_kernel_line(
             K1_SOURCES[dtype], "mxnet_tpu_torch/csrc/%s.cu" % K1_SOURCES[dtype],
             "mxnet_tpu/op/pallas/flash_attention.py:38", records["K1", dtype],
-            paths, "serve" if f32 else "imperative_bf16",
-            serving_err[dtype], card, str(dtype)))
+            paths, "serve" if f32 else "train_fused_bf16",
+            serving_err[dtype], card, str(dtype), trains))
         lines.append(_kernel_line(
             B2_SOURCES[dtype],
             "mxnet_tpu_torch/csrc/%s.cu" % B2_SOURCES[dtype],
             "mxnet_tpu/op/pallas/flash_attention.py:165",
             records["B2", dtype], paths,
-            "train" if f32 else "imperative_bf16", serving_bwd_err[dtype],
-            card, str(dtype)))
+            "train" if f32 else "train_fused_bf16", serving_bwd_err[dtype],
+            card, str(dtype), trains))
     rtc = _kernel_line("rtc", "mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:84",
                        gelu, paths, "imperative", gelu["max_abs_err"], card,
                        "float32")

@@ -17,7 +17,8 @@ import torch
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "default_context",
            "set_default_context", "current_context",
-           "_DTYPE_TORCH_TO_MX", "_DTYPE_MX_TO_TORCH", "_dtype", "dtype_name"]
+           "_DTYPE_TORCH_TO_MX", "_DTYPE_MX_TO_TORCH", "_dtype", "dtype_name",
+           "cast"]
 
 
 class MXNetError(RuntimeError):
@@ -64,6 +65,23 @@ def _dtype(dtype) -> torch.dtype:
     if name not in _DTYPE_BY_NAME:
         raise MXNetError("unsupported dtype %r" % (dtype,))
     return _DTYPE_BY_NAME[name]
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` converted to ``dtype`` as the JAX package's ``astype`` does:
+    a float converted to an integer type truncates toward zero and
+    saturates at the type's range, NaN giving 0 (``.to`` alone wraps, and
+    its NaN is undefined).  Every other conversion is ``.to``'s."""
+    if not x.is_floating_point() or dtype.is_floating_point \
+            or dtype.is_complex or dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    # float64 holds every float exactly and the int32 bounds too; the
+    # int64 top (2^63 - 1) rounds up to 2^63, so values that reach it are
+    # set to the top after the conversion
+    wide = torch.nan_to_num(x.double(), nan=0.0)
+    out = wide.clamp(info.min, info.max).to(dtype)
+    return torch.where(wide >= float(info.max), info.max, out)
 
 
 class Context:

@@ -140,6 +140,14 @@ class Accuracy(EvalMetric):
         return hits.sum().float(), hits.numel()
 
 
+def _pick(pred, lab):
+    """``pred[i, lab[i]]`` per row, a negative label counting from the
+    last class as the JAX package's ``take_along_axis`` does (so an
+    ignored ``-1`` padding label never indexes out of bounds)."""
+    lab = torch.where(lab < 0, lab + pred.shape[1], lab)
+    return pred.gather(1, lab[:, None])[:, 0]
+
+
 class Perplexity(EvalMetric):
     """``exp`` of the mean negative log probability of the target, with
     an optional ignored padding label."""
@@ -153,7 +161,7 @@ class Perplexity(EvalMetric):
         lab = label.long().ravel()
         if pred.dim() > 2:
             pred = pred.reshape(-1, pred.shape[-1])
-        probs = pred.gather(1, lab[:, None])[:, 0]
+        probs = _pick(pred, lab)
         if self.ignore_label is not None:
             keep = lab != self.ignore_label
             probs = torch.where(keep, probs, torch.ones_like(probs))
@@ -180,7 +188,7 @@ class CrossEntropy(EvalMetric):
 
     def _stat(self, label, pred):
         lab = label.long().ravel()
-        picked = pred.gather(1, lab[:, None])[:, 0]
+        picked = _pick(pred, lab)
         return -(picked + self.eps).log().sum().float(), lab.numel()
 
 

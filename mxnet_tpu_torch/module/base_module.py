@@ -7,6 +7,10 @@ the bind -> init_params -> init_optimizer lifecycle and ``arg:``/``aux:``
 parameter files.  The JAX package's observability, resilience, elastic,
 integrity and upload-overlap hooks around the epoch loop are not part of
 the port yet.
+
+At an epoch's end ``fit`` copies the trained values to the host and
+writes them back (``set_params``), as the JAX package's does; on the
+fused path that also re-creates the optimizer state, as it does there.
 """
 from __future__ import annotations
 
@@ -165,7 +169,16 @@ class BaseModule(object):
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch, elapsed)
+            trainer = getattr(self, "_trainer", None)
+            if trainer is not None and trainer.sentinel != "off":
+                skips = trainer.sentinel_skips
+                if skips:
+                    self.logger.warning(
+                        "Epoch[%d] sentinel skipped %d non-finite "
+                        "step(s) so far", epoch, skips)
+            # pull the trained values off the device and refresh mirrors
             arg_snap, aux_snap = self.get_params()
+            self.set_params(arg_snap, aux_snap)
             if epoch_end_callback is not None:
                 for cb in _as_list(epoch_end_callback):
                     cb(epoch, self.symbol, arg_snap, aux_snap)

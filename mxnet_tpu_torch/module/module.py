@@ -1,15 +1,25 @@
 """Module (``mxnet_tpu/module/module.py``): the training surface over a
-Symbol, on the classic executor path.
+Symbol.
 
-Reference ``python/mxnet/module/module.py:323-565``.  One executor on
-one context (:class:`DataParallelExecutorGroup`), gradients from its
-backward, and the optimizer applied per parameter by a local updater
-(one device needs no KVStore, as in the reference).  This is the path
-the JAX package takes on any context but a TPU.  Its fused path (the
-whole step as one program, ``parallel.Trainer``) is not ported yet: a
-mesh context, ``MXTPU_MODULE_FUSED=always`` or a ``compute_dtype``
-raises, naming the fused trainer slice, instead of training another
-way.
+Reference ``python/mxnet/module/module.py:323-565``.  Two execution
+paths, as in the JAX package:
+
+* **fused**: forward, backward and update as one step of
+  :class:`mxnet_tpu_torch.parallel.Trainer`, captured in one CUDA graph
+  on the card.  ``MXTPU_MODULE_FUSED=auto`` (the default) fuses a single
+  ``gpu`` context, the counterpart of the JAX package's single ``tpu``
+  context; ``always`` fuses any single context (the CPU tests use it);
+  ``never`` keeps the classic path.  ``forward(is_train=True)`` stages
+  the batch, ``update()`` runs the step, and the outputs metrics see are
+  the step's forward outputs.
+* **classic**: one executor on one context
+  (:class:`DataParallelExecutorGroup`), gradients from its backward, and
+  the optimizer applied per parameter by a local updater (one device
+  needs no KVStore, as in the reference).  It also takes an optimizer
+  without a pure rule, with a logged warning, as the JAX package does.
+
+A mesh context, several contexts and a ``dist`` KVStore raise, naming
+the port's mesh and KVStore slice.
 """
 from __future__ import annotations
 
@@ -26,9 +36,8 @@ from ..ndarray import zeros
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
 
-FUSED_SLICE = ("the fused trainer (the whole step as one program, with a "
-               "CUDA-graph capture) is not ported yet: it comes with the "
-               "port's fused Trainer slice")
+MESH_SLICE = ("a mesh context (several devices in one fused step) waits for "
+              "the port's mesh and KVStore slice")
 
 
 class Module(BaseModule):
@@ -39,19 +48,21 @@ class Module(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  compute_dtype=None):
         super().__init__(logger=logger)
-        if compute_dtype or os.environ.get("MXTPU_COMPUTE_DTYPE"):
-            raise MXNetError("compute_dtype: %s" % FUSED_SLICE)
-        if os.environ.get("MXTPU_MODULE_FUSED", "auto") == "always":
-            raise MXNetError("MXTPU_MODULE_FUSED=always: %s" % FUSED_SLICE)
+        # the fused path's compute dtype (e.g. "bfloat16" products with
+        # float32 master weights); default from MXTPU_COMPUTE_DTYPE
+        self._compute_dtype = compute_dtype or \
+            os.environ.get("MXTPU_COMPUTE_DTYPE") or None
         if context is None:
             context = current_context()
         if isinstance(context, Context):
             context = [context]
         elif not (isinstance(context, (list, tuple))
                   and all(isinstance(c, Context) for c in context)):
-            raise MXNetError("context %r (a mesh?): %s"
-                             % (context, FUSED_SLICE))
+            raise MXNetError("context %r: %s" % (context, MESH_SLICE))
         self._context = list(context)
+        # fused-path policy: "auto" fuses a single gpu context, "always"
+        # any single context, "never" keeps the classic executor path
+        self._fused_mode = os.environ.get("MXTPU_MODULE_FUSED", "auto")
         n_dev = len(self._context)
         self._work_load_list = work_load_list or [1] * n_dev
         assert len(self._work_load_list) == n_dev
@@ -81,6 +92,11 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        # fused path state: bind chose it, init_optimizer makes the trainer
+        self._fused = False
+        self._trainer = None
+        self._staged_batch = None
+        self._fused_outputs = None
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -132,14 +148,19 @@ class Module(BaseModule):
     @property
     def output_shapes(self):
         assert self.binded
-        return self._exec_group.get_output_shapes()
+        if self._exec_group is not None:
+            return self._exec_group.get_output_shapes()
+        shapes = {d.name: d.shape
+                  for d in self._data_shapes + (self._label_shapes or [])}
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names,
+                        (tuple(s) for s in out_shapes)))
 
     # ------------------------------------------------------------------
     def get_params(self):
         assert self.binded and self.params_initialized
-        if self._params_dirty:      # trained values still in the executor
-            self._exec_group.get_params(self._arg_params, self._aux_params)
-            self._params_dirty = False
+        if self._params_dirty:      # trained values still on the device
+            self._sync_params_from_devices()
         return self._arg_params, self._aux_params
 
     def init_params(self, initializer=Uniform(0.01), arg_params=None,
@@ -174,7 +195,14 @@ class Module(BaseModule):
 
         self.params_initialized = True
         self._params_dirty = False
-        self._exec_group.set_params(self._arg_params, self._aux_params)
+        if self._trainer is not None:
+            self._trainer.init_params(arg_params=self._arg_params,
+                                      aux_params=self._aux_params,
+                                      force_init=True)
+        elif self._exec_group is not None:
+            self._exec_group.set_params(self._arg_params, self._aux_params)
+        # else: the fused path before init_optimizer; the trainer takes
+        # the host copies when it is made
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True):
@@ -187,20 +215,40 @@ class Module(BaseModule):
             warnings.warn("Parameters already initialized and force_init="
                           "False. set_params call ignored.", stacklevel=2)
             return
-        self._exec_group.set_params(arg_params, aux_params)
+        if self._trainer is not None:
+            self._trainer.set_params(arg_params, aux_params)
+        elif self._exec_group is not None:
+            self._exec_group.set_params(arg_params, aux_params)
+        else:
+            for params, given in ((self._arg_params, arg_params),
+                                  (self._aux_params, aux_params)):
+                for name, arr in (given or {}).items():
+                    if name in params:
+                        arr.copyto(params[name])
+            self.params_initialized = True
+            return
         self._params_dirty = True
         self.params_initialized = True
 
     # ------------------------------------------------------------------
+    def _reset_bind(self):
+        self.binded = False
+        self._exec_group = None
+        self._data_shapes = None
+        self._label_shapes = None
+        self._fused = False
+        self._trainer = None
+
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
-        """Bind the executor (reference ``module.py:323-431``).  The host
-        copies of the parameters live on the CPU; the executor's on the
+        """Bind (reference ``module.py:323-431``).  The fused path only
+        infers shapes and makes the host parameter copies here: its
+        trainer is made by ``init_optimizer``.  The host copies of the
+        parameters live on the CPU; the executor's or trainer's on the
         module's context."""
         if force_rebind:
-            self.binded = False
-            self._exec_group = None
+            self._reset_bind()
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
@@ -219,11 +267,22 @@ class Module(BaseModule):
                                   else DataDesc(*x) for x in label_shapes]
         else:
             self._label_shapes = None
-        self._exec_group = DataParallelExecutorGroup(
-            self._symbol, self._context, self._data_shapes,
-            self._label_shapes, self._param_names, self.for_training,
-            self.inputs_need_grad, logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+
+        fused_ok = (for_training and not inputs_need_grad and
+                    grad_req == "write" and not self._fixed_param_names and
+                    self._fused_mode != "never")
+        if fused_ok and (self._fused_mode == "always" or (
+                len(self._context) == 1 and
+                self._context[0].device_type == "gpu")):
+            if len(self._context) != 1:
+                raise MXNetError("MXTPU_MODULE_FUSED=always over %d "
+                                 "contexts: %s" % (len(self._context),
+                                                   MESH_SLICE))
+            self._context[0].torch_device()     # raises without the device
+            self._fused = True
+            self._build_param_mirrors()
+            return
+        self._bind_exec_group(grad_req)
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
         else:
@@ -235,13 +294,55 @@ class Module(BaseModule):
                 n: zeros(x[0].shape, host, x[0].dtype) for n, x in
                 zip(self._aux_names, self._exec_group.aux_arrays)}
 
+    def _bind_exec_group(self, grad_req="write"):
+        self._exec_group = DataParallelExecutorGroup(
+            self._symbol, self._context, self._data_shapes,
+            self._label_shapes, self._param_names, self.for_training,
+            self.inputs_need_grad, logger=self.logger,
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+
+    def _build_param_mirrors(self):
+        """Host (CPU) copies of the parameters at their inferred shapes,
+        for the fused path, unless a checkpoint already gave them."""
+        shapes = {d.name: d.shape
+                  for d in self._data_shapes + (self._label_shapes or [])}
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**shapes)
+        arg_map = dict(zip(self._symbol.list_arguments(), arg_shapes))
+        aux_map = dict(zip(self._aux_names, aux_shapes))
+        if self._arg_params is None:
+            host = Context("cpu")
+            self._arg_params = {n: zeros(arg_map[n], host)
+                                for n in self._param_names}
+            self._aux_params = {n: zeros(aux_map[n], host)
+                                for n in self._aux_names}
+
+    def _new_trainer(self, optimizer):
+        """A bound Trainer on the module's context, its params from the
+        host copies."""
+        from ..parallel.trainer import Trainer
+        # a copy: the module's own Context may be the one a caller's
+        # ``with`` has entered, and a Context holds one saved scope
+        with Context(self._context[0]):
+            trainer = Trainer(
+                self._symbol, optimizer, data_names=self._data_names,
+                label_names=self._label_names,
+                compute_dtype=self._compute_dtype)
+        trainer.bind(
+            data_shapes={d.name: d.shape for d in self._data_shapes},
+            label_shapes={d.name: d.shape
+                          for d in (self._label_shapes or [])})
+        trainer.init_params(arg_params=self._arg_params,
+                            aux_params=self._aux_params, force_init=True)
+        return trainer
+
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Install the optimizer (reference ``module.py:432-530``).  One
-        device with a local store updates through a local updater; a
-        ``dist`` store, or several devices, needs the KVStore slice and
-        raises."""
+        """Install the optimizer (reference ``module.py:432-530``).  The
+        fused path makes its Trainer here; an optimizer without a pure
+        rule falls back, with a warning, to the classic path.  One device
+        with a local store updates through a local updater; a ``dist``
+        store, or several devices, needs the KVStore slice and raises."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
@@ -265,7 +366,26 @@ class Module(BaseModule):
                 optimizer.idx2name = {i: n for i, n in
                                       enumerate(self._param_names)}
         self._optimizer = optimizer
+        if self._fused:
+            from ..parallel.optim import _supports_fusion
+            if _supports_fusion(optimizer):
+                self._trainer = self._new_trainer(optimizer)
+                self._finish_optimizer_init()
+                return
+            # an optimizer without a pure fused-step rule (SGLD,
+            # user-defined subclasses) trains on the classic path
+            self.logger.warning("optimizer %s has no fused-step rule; using "
+                                "the classic executor path"
+                                % type(optimizer).__name__)
+            self._fused = False
+            self._trainer = None
+            self._bind_exec_group()
+            self._exec_group.set_params(self._arg_params, self._aux_params)
         self._updater = opt.get_updater(optimizer)
+        self._finish_optimizer_init()
+
+    def _finish_optimizer_init(self):
+        """Mark ready and load any optimizer state a resume queued."""
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             preload, self._preload_opt_states = self._preload_opt_states, None
@@ -274,24 +394,68 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
+        if self._fused:
+            if is_train is None:
+                is_train = self.for_training
+            batch = self._fused_batch_dict(data_batch)
+            if is_train:
+                self._staged_batch = batch
+                self._fused_outputs = None
+            else:
+                self._ensure_trainer()
+                self._fused_outputs = self._trainer.forward(batch)
+            return
         self._exec_group.forward(data_batch, is_train)
+
+    def _ensure_trainer(self):
+        """A fused-path forward before init_optimizer (``score`` on a
+        freshly bound module): a trainer with a placeholder optimizer,
+        which init_optimizer replaces."""
+        if self._trainer is None:
+            self._trainer = self._new_trainer(opt.SGD())
+
+    def _fused_batch_dict(self, data_batch):
+        batch = dict(zip(self._data_names, data_batch.data))
+        if data_batch.label is not None:
+            batch.update(zip(self._label_names, data_batch.label))
+        return batch
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
+        if self._fused:
+            assert out_grads is None, \
+                "the fused path computes gradients inside its step"
+            return
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """Apply the optimizer to every parameter with a gradient
-        (reference ``module.py:553``)."""
+        """Apply the optimizer (reference ``module.py:553``): on the fused
+        path, the whole step."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         self._params_dirty = True
+        if self._trainer is not None:
+            assert self._staged_batch is not None, \
+                "call forward(is_train=True) before update() on the fused path"
+            self._fused_outputs = self._trainer.step(self._staged_batch)
+            self._staged_batch = None
+            return
         _update_params(self._exec_group.param_arrays,
                        self._exec_group.grad_arrays, updater=self._updater,
                        num_device=len(self._context))
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
+        if self._fused:
+            if self._fused_outputs is None and self._staged_batch is not None:
+                # outputs read between forward(is_train=True) and update():
+                # a training-mode forward without the update
+                self._ensure_trainer()
+                self._fused_outputs = self._trainer.forward_train(
+                    self._staged_batch)
+            assert self._fused_outputs is not None, \
+                "no outputs yet: run forward() or update()"
+            return self._fused_outputs
         return self._exec_group.get_outputs(
             merge_multi_context=merge_multi_context)
 
@@ -302,15 +466,52 @@ class Module(BaseModule):
             merge_multi_context=merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
+        if self._fused:
+            if self._fused_outputs is None and self._staged_batch is not None:
+                # the metric before update(): a training-mode forward (the
+                # fit loop's update-then-metric order avoids this cost)
+                self.get_outputs()
+            if self._fused_outputs is not None:
+                eval_metric.update(labels, self._fused_outputs)
+            return
         self._exec_group.update_metric(eval_metric, labels)
 
     # ------------------------------------------------------------------
+    def _sync_params_from_devices(self):
+        """Copy the trained values into the host copies."""
+        if self._trainer is not None:
+            for store, host in ((self._trainer.params, self._arg_params),
+                                (self._trainer.aux, self._aux_params)):
+                for n, v in store.items():
+                    host[n]._set_data(v)
+        else:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
+        self._params_dirty = False
+
+    @property
+    def sentinel_skips(self):
+        """The fused step's sentinel skip count (0 on the classic path,
+        which has no finiteness watch)."""
+        if self._trainer is not None:
+            return self._trainer.sentinel_skips
+        return 0
+
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized
         with open(fname, "wb") as fout:
-            fout.write(self._updater.get_states())
+            fout.write(self._trainer.get_opt_states()
+                       if self._trainer is not None
+                       else self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
         with open(fname, "rb") as fin:
-            self._updater.set_states(fin.read())
+            blob = fin.read()
+        if self._trainer is None:
+            self._updater.set_states(blob)
+            return
+        try:
+            self._trainer.set_opt_states(blob)
+        except MXNetError as e:
+            raise MXNetError("optimizer states file %r: %s"
+                             % (fname, e)) from e

@@ -34,7 +34,7 @@ from numbers import Number
 import numpy as np
 import torch
 
-from .base import (Context, MXNetError, _DTYPE_MX_TO_TORCH,
+from .base import (Context, MXNetError, _DTYPE_MX_TO_TORCH, cast,
                    _DTYPE_TORCH_TO_MX, _dtype, current_context)
 from .op import registry as _reg
 from .op.tensor import one_hot as _one_hot
@@ -146,7 +146,9 @@ class NDArray:
         return self.asnumpy().reshape(())[()]
 
     def astype(self, dtype):
-        return NDArray(self._data.to(_dtype(dtype), copy=True))
+        dtype = _dtype(dtype)
+        out = cast(self._data, dtype)
+        return NDArray(out.clone() if out is self._data else out)
 
     def copy(self):
         return NDArray(self._data.clone())

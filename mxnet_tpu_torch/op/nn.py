@@ -94,14 +94,19 @@ def _ln_infer_shape(p, in_shapes):
           mode_dependent=True, hint="dropout")
 def _dropout(p, c, a):
     """Inverted dropout: in training each element is kept with
-    probability ``1 - p`` and scaled by ``1 / (1 - p)``, the mask drawn
-    from the OpContext's generator; the identity otherwise."""
+    probability ``1 - p`` and divided by ``1 - p`` (rounded to the
+    input's dtype, as the JAX package's weakly typed ``a / keep``), the
+    mask drawn from the OpContext's generator; the identity otherwise."""
     if not c.is_train or p["p"] <= 0.0:
         return a
     keep = 1.0 - p["p"]
     mask = torch.empty(a.shape, dtype=torch.float32, device=a.device) \
         .bernoulli_(keep, generator=c.rng)
-    return a * (mask / keep).to(a.dtype)
+    # a true division by a 0-d tensor on a's device (CUDA divides by a
+    # host scalar as a product with its reciprocal), made by a fill, so
+    # a captured CUDA graph copies nothing from the host
+    keep = torch.full((), keep, dtype=a.dtype, device=a.device)
+    return torch.where(mask != 0, a / keep, 0.0)
 
 
 # ----------------------------------------------------------------------

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, cast
 from .registry import Param, register, alias, get
 
 
@@ -150,7 +150,7 @@ alias("concat", "Concat")
 @register("Cast", params_spec=(Param("dtype", "dtype", required=True),),
           hint="cast")
 def _cast(p, c, a):
-    return a.to(p["dtype"])
+    return cast(a, p["dtype"])
 
 
 alias("cast", "Cast")

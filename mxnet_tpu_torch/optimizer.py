@@ -13,6 +13,14 @@ its state, on the device they lie on (the card in training); the JAX
 package jits the same rule per weight, and no Pallas kernel exists for
 it.  The arithmetic is the JAX package's ``_rule`` of each class, in
 the same order.
+
+Each class also has the JAX package's pure form of its math:
+``_state(w)`` makes a weight's state and ``_rule(w, g, state, lr, wd,
+t)`` returns the new weight and state as new tensors, touching none of
+its inputs.  ``lr`` and ``t`` may be 0-d device tensors, so a step
+captured in a CUDA graph reads them at every replay instead of baking
+them in.  The fused step (:func:`mxnet_tpu_torch.parallel.optim.
+make_update_fn`) applies that rule to every parameter.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ class Optimizer(object):
     gradient preprocessing every rule shares."""
 
     opt_registry = {}
+    has_noise = False           # the rule draws random numbers (SGLD)
 
     def __init__(self, rescale_grad=1., param_idx2name=None, wd=0.,
                  clip_gradient=None, learning_rate=0.01,
@@ -125,11 +134,22 @@ class Optimizer(object):
         return lr, wd, self._index_update_count[index]
 
     def _prep_grad(self, g, w, wd):
-        """Rescale, clip, add weight decay: a new tensor."""
+        """Rescale, clip, add weight decay: a new tensor (``g`` and ``w``
+        stay as they are)."""
         g = g * self.rescale_grad
         if self.clip_gradient is not None and self.clip_gradient > 0:
             g = g.clamp_(-self.clip_gradient, self.clip_gradient)
         return g.add_(w, alpha=wd)
+
+    # -- the pure rule ---------------------------------------------------
+    def _state(self, w):
+        """A weight's state from the weight tensor (None: stateless)."""
+        return None
+
+    def _rule(self, w, g, state, lr, wd, t):
+        """``(new weight, new state)`` from the weight, its gradient, its
+        state, the learning rate, the weight decay and the step ``t``."""
+        raise NotImplementedError()
 
     # -- per-rule -------------------------------------------------------
     def create_state(self, index, weight):
@@ -173,6 +193,16 @@ class SGD(Optimizer):
         mom.mul_(self.momentum).sub_(g.mul_(lr))
         w.add_(mom)
 
+    def _state(self, w):
+        return torch.zeros_like(w) if self.momentum else None
+
+    def _rule(self, w, g, mom, lr, wd, t):
+        g = self._prep_grad(g, w, wd)
+        if mom is None:
+            return w - lr * g, None
+        mom = self.momentum * mom - lr * g
+        return w + mom, mom
+
 
 @register
 class Adam(Optimizer):
@@ -196,6 +226,19 @@ class Adam(Optimizer):
         var.mul_(self.beta2).addcmul_(g, g, value=1 - self.beta2)
         step = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
         w.sub_(mean.mul(step).div_(var.sqrt().add_(self.epsilon)))
+
+    def _state(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _rule(self, w, g, state, lr, wd, t):
+        mean, var = state
+        g = self._prep_grad(g, w, wd)
+        mean = self.beta1 * mean + (1 - self.beta1) * g
+        var = self.beta2 * var + (1 - self.beta2) * g.square()
+        # float32 on the device when t is a tensor, as the JAX rule's
+        step = lr * torch.sqrt(1 - self.beta2 ** torch.as_tensor(t)) \
+            / (1 - self.beta1 ** torch.as_tensor(t))
+        return w - step * mean / (var.sqrt() + self.epsilon), (mean, var)
 
 
 create = Optimizer.create_optimizer

@@ -159,18 +159,18 @@ def test_optimizer_states_round_trip(tmp_path):
 
 def test_requests_the_port_cannot_honour_raise(monkeypatch):
     sym = _softmax_mlp(mt)
-    with pytest.raises(mt.MXNetError, match="fused Trainer"):
-        Module(sym, context=mt.cpu(), compute_dtype="bfloat16")
-    with pytest.raises(mt.MXNetError, match="fused Trainer"):
+    with pytest.raises(mt.MXNetError, match="mesh"):
         Module(sym, context=object())               # a mesh
-    monkeypatch.setenv("MXTPU_MODULE_FUSED", "always")
-    with pytest.raises(mt.MXNetError, match="fused Trainer"):
-        Module(sym, context=mt.cpu())
-    monkeypatch.delenv("MXTPU_MODULE_FUSED")
     mod = Module(sym, context=[mt.cpu(0), mt.cpu(1)])
     with pytest.raises(mt.MXNetError, match="KVStore"):
         mod.bind(data_shapes=[("data", (4, 10))],
                  label_shapes=[("softmax_label", (4,))])
+    monkeypatch.setenv("MXTPU_MODULE_FUSED", "always")
+    mod = Module(sym, context=[mt.cpu(0), mt.cpu(1)])
+    with pytest.raises(mt.MXNetError, match="mesh and KVStore"):
+        mod.bind(data_shapes=[("data", (4, 10))],
+                 label_shapes=[("softmax_label", (4,))])
+    monkeypatch.delenv("MXTPU_MODULE_FUSED")
     mod = Module(sym, context=mt.cpu())
     mod.bind(data_shapes=[("data", (4, 10))],
              label_shapes=[("softmax_label", (4,))])
@@ -178,7 +178,7 @@ def test_requests_the_port_cannot_honour_raise(monkeypatch):
     with pytest.raises(mt.MXNetError, match="KVStore"):
         mod.init_optimizer(kvstore="dist_sync")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    gpu = Module(sym)                       # the default context: the card
+    gpu = Module(sym)         # the default context, the card: fused path
     with pytest.raises(mt.MXNetError, match="no CUDA device"):
         gpu.bind(data_shapes=[("data", (4, 10))],
                  label_shapes=[("softmax_label", (4,))])

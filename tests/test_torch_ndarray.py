@@ -113,6 +113,20 @@ def test_matches_mxnet_tpu(name):
     _close(SCENARIOS[name])
 
 
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int32"])
+def test_float_to_integer_casts_saturate_as_the_jax_package(dtype):
+    """``Cast`` and ``astype`` from float truncate toward zero and
+    saturate at the integer type's range, NaN giving 0, exactly as the
+    JAX package's ``astype``; ``.to`` wrapped (uint8 300 -> 44)."""
+    x = np.array([-1.7, 2.7, 300.0, np.nan, 3e9, -3e9, -0.5, 255.9], "f")
+    want = mx.nd.array(x).astype(dtype).asnumpy()
+    with mt.cpu():
+        for got in (mt.nd.array(x).astype(dtype),
+                    mt.nd.Cast(mt.nd.array(x), dtype=dtype)):
+            assert got.asnumpy().dtype == want.dtype
+            np.testing.assert_array_equal(got.asnumpy(), want)
+
+
 def test_reductions_and_dot_match_mxnet_tpu():
     """``test_ndarray.py::test_generated_ops``' sum and dot, at 1e-5."""
     a = np.abs(np.random.RandomState(0).randn(3, 4)).astype("f") + 0.5

@@ -163,6 +163,27 @@ def test_metrics_match_the_jax_package():
     assert acc.sum_metric == 2 and acc.num_inst == 3
 
 
+def test_perplexity_and_cross_entropy_take_a_negative_label():
+    """A ``-1`` (padding) label counts from the last class, as the JAX
+    package's ``take_along_axis`` does, and ``Perplexity(-1)`` then drops
+    those rows; the port's ``gather`` raised on it (on the card, a
+    device-side assert)."""
+    rng = np.random.RandomState(0)
+    pred = rng.rand(6, 5).astype("f")
+    pred /= pred.sum(1, keepdims=True)
+    labels = np.array([0, 1, 2, -1, 4, 1], "f")
+    cases = [(lambda m: m.metric.Perplexity(-1), 2, 8.1557),
+             (lambda m: m.metric.Perplexity(None), 2, 7.2911),
+             (lambda m: m.metric.CrossEntropy(), 1, 2.0976)]
+    for make, updates, value in cases:
+        jm, tm = make(mx), make(mt)
+        for rows in (6, 3)[:updates]:
+            jm.update([mx.nd.array(labels[:rows])], [mx.nd.array(pred[:rows])])
+            tm.update([_cpu(labels[:rows])], [_cpu(pred[:rows])])
+        np.testing.assert_allclose(tm.get()[1], jm.get()[1], rtol=1e-6)
+        np.testing.assert_allclose(tm.get()[1], value, rtol=1e-4)
+
+
 def test_ndarray_iter_shuffles_as_the_jax_package_does():
     x = np.arange(70, dtype="f").reshape(35, 2)
     y = np.arange(35, dtype="f")
@@ -204,6 +225,25 @@ def test_training_dropout_moments_and_determinism():
     assert abs(kept.mean() - 0.7) < 4 * np.sqrt(0.21 / kept.size)
     assert abs(a.mean() - 1.0) < 0.03
     assert mt.op.get("Dropout").mode_dependent
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_divides_kept_elements_as_the_jax_package(dtype):
+    """Every kept element is ``a / keep`` with ``keep`` rounded to the
+    input's dtype, bitwise the JAX package's (masks differ by generator,
+    so only the kept values are compared).  Multiplying by a rounded
+    ``1 / keep`` was an ulp off on 26% (float32) and 61% (bfloat16) of
+    them."""
+    import jax.numpy as jnp
+    x = np.random.RandomState(7).uniform(0.5, 1.5, 100000).astype("f")
+    with mt.autograd.train_mode():
+        out = mt.nd.Dropout(mt.nd.array(x, ctx=mt.cpu(), dtype=dtype),
+                            p=0.1).asnumpy()
+    want = np.asarray((jnp.asarray(x).astype(dtype) / 0.9)
+                      .astype(jnp.float32))
+    kept = out != 0
+    assert 0.89 < kept.mean() < 0.91
+    np.testing.assert_array_equal(out[kept], want[kept])
 
 
 def test_dropout_in_the_executor_draws_a_mask_per_forward():

@@ -3,20 +3,27 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/torch_train_profile.py
+    python3 tools/torch_train_profile.py [classic|fused|fused_bf16 ...]
 
-It builds the trained cell of ``chip_smoke.py`` (GPT-2 small's widths
-and depth, batch 4 x 1024 tokens, float32, Adam; the same seed and
-batches) and takes two warm-up steps.  Then, for STEPS steps, it times
+For each mode named (all three by default) it builds the trained cell
+of ``chip_smoke.py`` (GPT-2 small's widths and depth, batch 4 x 1024
+tokens, Adam; the same seed and batches): ``classic`` on the executor
+path (``MXTPU_MODULE_FUSED=never``), ``fused`` through the fused
+Trainer, whose step is one CUDA graph, and ``fused_bf16`` the same with
+``compute_dtype="bfloat16"``.  It takes two warm-up steps (on the fused
+path: the eager step and the capture).  Then, for STEPS steps, it times
 each phase of ``Module.fit``'s step on the host clock, with the stream
-synchronised around it: forward (``is_train=True``), backward, the
-optimizer update and the metric update.  Last it traces two more steps
+synchronised around it: forward (``is_train=True``; on the fused path
+it only stages the batch), backward (nothing on the fused path), the
+optimizer update (the fused path's whole step, a graph replay) and the
+metric update.  Last it traces two more steps
 with ``torch.profiler``.  It prints one JSON object: the median of each
 phase, the traced steps' wall time, the device time of every kernel by
 name (the largest first) and in groups (the attention forward K1, the
 attention backward B2, matrix products, everything else), and the share
 of the wall time in which no kernel ran.  One stream runs everything, so
 kernel times do not overlap and their sum is the device's busy time.
+One JSON object a mode.
 """
 import json
 import os
@@ -54,13 +61,30 @@ def _batches(data):
         yield from data
 
 
+MODES = {"classic": dict(fused=False), "fused": dict(fused=True),
+         "fused_bf16": dict(fused=True, compute_dtype="bfloat16")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 1
+    modes = sys.argv[1:] or list(MODES)
+    unknown = set(modes) - set(MODES)
+    if unknown:
+        print("torch_train_profile: unknown modes %s (of %s)"
+              % (sorted(unknown), sorted(MODES)), file=sys.stderr)
+        return 2
     card = chip_smoke.environment()
     chip_smoke.build_kernels()
-    mod, data, _, _, _ = chip_smoke.gpt2_train_cell()
+    for mode in modes:
+        profile_mode(card, mode)
+        torch.cuda.empty_cache()
+    return 0
+
+
+def profile_mode(card, mode):
+    mod, data, _, _, _ = chip_smoke.gpt2_train_cell(**MODES[mode])
     metric = mt.metric.Perplexity(None)
     batches = _batches(data)
 
@@ -106,8 +130,11 @@ def main():
     for name, secs in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + secs
     busy_s = sum(kernels.values())
+    trainer = mod._trainer
     print(json.dumps({
-        "card": card, "cell": "gpt2-small train", "batch": chip_smoke.BATCH,
+        "card": card, "cell": "gpt2-small train", "mode": mode,
+        "graph_replays": trainer.graph_replays if trainer else None,
+        "batch": chip_smoke.BATCH,
         "seq_len": chip_smoke.GPT2_SMALL["seq_len"],
         "phase_s_median": {k: statistics.median(v)
                            for k, v in phases.items()},
@@ -119,8 +146,7 @@ def main():
                               for k, v in sorted(groups.items())},
         "kernels_s_per_step": {k: v / TRACED for k, v in sorted(
             kernels.items(), key=lambda kv: -kv[1])[:40]},
-    }))
-    return 0
+    }), flush=True)
 
 
 if __name__ == "__main__":
