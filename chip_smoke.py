@@ -66,7 +66,18 @@ fails:
    replays (the LM, depth cut to 2 blocks), and GPT-2's MLP block with a
    Dropout: a NaN batch inside a replay leaves params and optimizer
    state bitwise as they were, and every replay draws fresh masks;
-11. times: each kernel, its plain version and the PyTorch library call
+11. train_resnet_vs_cpu: one float32 step of ResNet-50 (NHWC, batch 4 of
+   112 x 112, random weights) through the fused Trainer on the card and on
+   the CPU, with cuDNN's TF32 flag at PyTorch's default (on): the head's
+   gradients, the moving statistics and the outputs within RESNET_TOL,
+   every gradient by median and largest error, the flag still on after;
+12. train_resnet_bf16: ``Module.fit`` trains ResNet-50 at bench.py's
+   configuration (batch 256 of 224 x 224, bfloat16 compute, SGD momentum)
+   for 12 steps of one repeated batch made on the card: one capture and a
+   replay a step, no input copied, none of the port's kernels launched,
+   the first step's head gradients against float32 compute's, a falling
+   cross-entropy; step ms, img/s and peak memory;
+13. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
@@ -142,6 +153,38 @@ BF16_GRAD_TOL = 5e-2
 # and GPT-2's MLP block with a Dropout as a float-input model
 SENTINEL_LAYERS = 2
 DROPOUT_P = 0.1
+# the ResNet cell: bench.py's _build_module (resnet-50, 1000 classes, NHWC,
+# SGD momentum 0.9 at lr 0.1, rescale_grad 1/batch, Xavier gaussian "in"
+# magnitude 2), bfloat16 compute, batch 256 of 224 x 224 x 3, on one card
+# with the "local" kvstore; one staged batch repeated, RESNET_STEPS steps
+RESNET = dict(num_classes=1000, layout="NHWC")
+RESNET_INIT = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
+RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 256, 224, 12
+RESNET_BN_MOMENTUM = 0.9          # resnet.get_symbol's BatchNorm momentum
+# train_resnet_vs_cpu: one float32 step at a batch the CPU side can take
+RESNET_CHECK_BATCH, RESNET_CHECK_IMAGE = 4, 112
+# Tolerances, relative norm per array, fixed from the port's CPU run at
+# RESNET_CHECK_* from SEED (tools/torch_resnet_tolerances.py).  This
+# network's float32 parameter gradients are ill-conditioned at that
+# batch: the port's step was a median 4.2e-2 (at most 0.16, bn0_gamma)
+# from the JAX package's, while the head's gradients (fc1: 1.2e-4), the
+# moving statistics (4.5e-5) and the outputs (7.5e-5) agreed.
+# Convolutions rounded to TF32 move those three by the amounts the tool
+# prints as tf32_vs_port.  So the card's float32 step is held to
+# RESNET_TOL on the head's gradients, the moving statistics and the
+# outputs, and to RESNET_GRAD_MEDIAN_TOL / RESNET_GRAD_MAX_TOL on the
+# median / largest error of every parameter's gradient
+RESNET_TOL = 1e-3
+RESNET_GRAD_MEDIAN_TOL, RESNET_GRAD_MAX_TOL = 0.2, 1.0
+# The bfloat16 step's float32 gradients against float32 compute's, on the
+# CPU: the head's were RESNET_BF16_HEAD_GAP apart; every other
+# parameter's a median 1.2 (at most 1.6e3), as in the JAX package's
+# Trainer (1.2, at most 1.7e3: its residual stream and BatchNorms in
+# bfloat16).  The head is held to 3 times its gap, every gradient to
+# being finite
+RESNET_BF16_HEAD_GAP = {"fc1_bias": 2.107e-3, "fc1_weight": 0.1705}
+RESNET_BF16_HEAD_TOL = {n: 3 * g for n, g in RESNET_BF16_HEAD_GAP.items()}
 # H100 SXM peaks (NVIDIA data sheet; dense, at the full 700 W limit):
 # device memory, and arithmetic per dtype (float32 on the CUDA cores,
 # bfloat16 on the tensor cores)
@@ -926,6 +969,35 @@ def _random_params(symbol, shapes, rng):
     return params
 
 
+def resnet_params_and_batch(symbol, batch, image):
+    """Random ResNet weights and one batch, all numpy from SEED: He-normal
+    convolution and FullyConnected weights (fan-in from the HWIO or
+    (out, in) shape), BatchNorm gamma 1 and beta 0, moving statistics 0
+    and 1, and N(0, 1) images with float32 labels in [0, classes).
+    Returns (params, aux states, images, labels)."""
+    rng = np.random.default_rng(SEED)
+    shape = (batch, image, image, 3)
+    args, _, auxs = symbol.infer_shape(data=shape, softmax_label=(batch,))
+    arg = {}
+    for n, s in zip(symbol.list_arguments(), args):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("_gamma"):
+            arg[n] = np.ones(s, np.float32)
+        elif n.endswith(("_beta", "_bias")):
+            arg[n] = np.zeros(s, np.float32)
+        else:
+            fan_in = np.prod(s[:-1]) if len(s) == 4 else s[1]
+            arg[n] = (rng.standard_normal(s, dtype=np.float32)
+                      * np.sqrt(2.0 / fan_in)).astype(np.float32)
+    aux = {n: (np.ones(s, np.float32) if n.endswith("_var")
+               else np.zeros(s, np.float32))
+           for n, s in zip(symbol.list_auxiliary_states(), auxs)}
+    x = rng.standard_normal(shape, dtype=np.float32)
+    y = rng.integers(0, RESNET["num_classes"], batch).astype(np.float32)
+    return arg, aux, x, y
+
+
 def gpt2_small():
     """The served cell: the LM symbol at GPT-2 small's widths, its
     checkpoint (random weights from SEED) written in the reference format
@@ -1423,6 +1495,248 @@ def sentinel():
     return record
 
 
+def _resnet_trainer(ctx, symbol, arg, aux, batch):
+    """A float32 fused Trainer of ``symbol`` on ``ctx`` with bench.py's
+    SGD, bound to ``batch`` images of RESNET_CHECK_IMAGE^2 and initialised
+    from the numpy ``arg``/``aux``."""
+    with ctx:
+        tr = mt.parallel.Trainer(
+            symbol, mt.optimizer.SGD(rescale_grad=1.0 / batch, **RESNET_SGD))
+    image = RESNET_CHECK_IMAGE
+    tr.bind({"data": (batch, image, image, 3)}, {"softmax_label": (batch,)})
+    tr.init_params(
+        arg_params={n: torch.from_numpy(v) for n, v in arg.items()},
+        aux_params={n: torch.from_numpy(v) for n, v in aux.items()})
+    return tr
+
+
+def _rel_norms(got, want):
+    return {n: ((got[n].double() - w.double()).norm()
+                / w.double().norm().clamp(min=1e-30)).item()
+            for n, w in want.items()}
+
+
+def _batch_statistics(stepped, before):
+    """The batch statistics of a training forward, by name, recovered
+    from the moving statistics it made (``stepped``, in aux-name order)
+    from ``before``: ``new = m old + (1 - m) batch``.  An eval forward on
+    them normalises as training does; on the initial ones (mean 0, var 1)
+    the deep network's activations run away and the softmax saturates."""
+    m = RESNET_BN_MOMENTUM
+    return {n: ((v.double().cpu() - m * before[n].double()) / (1 - m))
+            .float() for n, v in zip(before, stepped)}
+
+
+def train_resnet_vs_cpu():
+    """One fused float32 step of ImageNet-form ResNet-50 (NHWC, batch
+    RESNET_CHECK_BATCH of RESNET_CHECK_IMAGE^2 images, SGD momentum) on
+    the card against the same step of the port on the CPU, from the same
+    random weights: every parameter gradient (their median and largest
+    error, and the head's), the step's output, both moving statistics of
+    every BatchNorm after the step, and the eval output (``score``'s
+    forward) on the batch's statistics.  Runs with cuDNN's TF32 flag at
+    PyTorch's default (on), which the convolutions must turn off for
+    themselves, and asserts the flag unchanged after.  Returns the kernel
+    launches of the card's run."""
+    _phase("train_resnet_vs_cpu")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    cudnn.allow_tf32 = True            # PyTorch's default, as users have it
+    try:
+        symbol = mt.models.get_symbol("resnet-50", **RESNET)
+        b = RESNET_CHECK_BATCH
+        arg, aux, x, y = resnet_params_and_batch(symbol, b,
+                                                 RESNET_CHECK_IMAGE)
+        batch = {"data": x, "softmax_label": y}
+        before = {n: torch.from_numpy(v) for n, v in aux.items()}
+        runs, secs = {}, {}
+        for side, ctx in (("card", mt.gpu()), ("cpu", mt.cpu())):
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            tr = _resnet_trainer(ctx, symbol, arg, aux, b)
+            dev = tr._device_batch(batch)
+            _, stepped, grads = tr._run_backward(tr.params, tr.aux, dev,
+                                                 None)
+            # score's forward on moving statistics equal to this batch's,
+            # with the weights the statistics came from; then the step
+            tr.set_params({}, _batch_statistics(stepped, before))
+            evals = tr.forward(batch)[0].data
+            tr.set_params({}, before)
+            out = tr.step(batch)[0].data
+            moving = {n: v.cpu() for n, v in tr.aux.items()}
+            if side == "card":
+                torch.cuda.synchronize()
+                launches = launch_counts()
+            runs[side] = (
+                {n: g.cpu() for n, g in grads.items()}, moving,
+                {"step_output": out.cpu(), "eval_output": evals.cpu()})
+            secs[side] = time.perf_counter() - t0
+            del tr, dev, grads, out, evals
+        flag = cudnn.allow_tf32
+    finally:
+        cudnn.allow_tf32 = saved
+    expect_launches("train_resnet_vs_cpu", launches)
+    (cg, cm, co), (hg, hm, ho) = runs["card"], runs["cpu"]
+    grad, moving = _rel_norms(cg, hg), _rel_norms(cm, hm)
+    outs = _rel_norms(co, ho)
+    worst_g, worst_m = max(grad, key=grad.get), max(moving, key=moving.get)
+    held = dict(outs, moving=moving[worst_m], fc1_weight=grad["fc1_weight"],
+                fc1_bias=grad["fc1_bias"])
+    # a saturated softmax (one-hot rows) would match at any precision
+    top = co["eval_output"].max(dim=1).values
+    record = {"train_resnet_vs_cpu": "resnet-50 NHWC float32", "batch": b,
+              "image": RESNET_CHECK_IMAGE, "cudnn_allow_tf32": flag,
+              "grad_rel_err_max": grad[worst_g], "worst_grad": worst_g,
+              "grad_rel_err_median": statistics.median(grad.values()),
+              "worst_moving": worst_m, "held_to_tolerance": held,
+              "tolerance": RESNET_TOL,
+              "grad_tolerance": {"median": RESNET_GRAD_MEDIAN_TOL,
+                                 "max": RESNET_GRAD_MAX_TOL},
+              "eval_top_probability": top.tolist(),
+              "finite": all(bool(torch.isfinite(v).all()) for v in
+                            list(cg.values()) + list(co.values())),
+              "seconds": secs}
+    _emit(record)
+    if flag is not True:
+        raise AssertionError("the ResNet step left cuDNN's TF32 flag at %s "
+                             "(it was True)" % flag)
+    if not record["finite"] or not all(
+            math.isfinite(e) and e <= RESNET_TOL for e in held.values()) \
+            or not float(top.max()) < 0.5 \
+            or not record["grad_rel_err_median"] <= RESNET_GRAD_MEDIAN_TOL \
+            or not grad[worst_g] <= RESNET_GRAD_MAX_TOL:
+        raise AssertionError("the card's float32 ResNet step is off the "
+                             "CPU's: %s" % record)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_cell():
+    """The tentpole cell's module and data: a Module on ``gpu(0)`` with
+    bfloat16 compute, bound, initialised (Xavier gaussian, from SEED) and
+    with bench.py's SGD installed; an NDArrayIter of RESNET_STEPS copies
+    of one batch of N(0, 1) images and int32 labels, made on the card from
+    SEED.  Returns (module, iterator, the batch's images and labels,
+    set-up seconds)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    y = torch.randint(0, RESNET["num_classes"], (RESNET_BATCH,),
+                      generator=gen, device="cuda", dtype=torch.int32)
+    data = mt.io.NDArrayIter(
+        mt.nd.NDArray(x.repeat(RESNET_STEPS, 1, 1, 1)),
+        mt.nd.NDArray(y.repeat(RESNET_STEPS)), batch_size=RESNET_BATCH)
+    symbol = mt.models.get_symbol("resnet-50", **RESNET)
+    mod = mt.mod.Module(symbol, context=mt.gpu(), compute_dtype="bfloat16")
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.bind(data.provide_data, data.provide_label)
+    mod.init_params(mt.init.Xavier(**RESNET_INIT))
+    mod.init_optimizer(kvstore="local", optimizer="sgd",
+                       optimizer_params=RESNET_SGD)
+    torch.cuda.synchronize()
+    if mod._trainer is None:
+        raise AssertionError("Module took the classic path")
+    return mod, data, x, y, time.perf_counter() - t0
+
+
+def train_resnet_bf16():
+    """The ResNet cell: ``Module.fit`` trains ResNet-50 at bench.py's
+    configuration (batch 256 of 224 x 224, bfloat16 compute, SGD momentum)
+    on the fused path over RESNET_STEPS steps of one repeated batch.
+    Asserts one capture and a replay each step after it, no input copied
+    on its way into the step, the first step's float32 gradients finite
+    and the head's within RESNET_BF16_HEAD_TOL of float32 compute's on the
+    same weights and batch, and a falling cross-entropy.  Returns (launches, the step record)."""
+    _phase("train_resnet_bf16")
+    t_phase = time.perf_counter()
+    mod, data, x, y, setup_s = resnet_cell()
+    tr = mod._trainer
+    dev = tr._device_batch({"data": x, "softmax_label": y})
+    if dev["data"] is not x or dev["softmax_label"] is not y:
+        raise AssertionError("the step copied its inputs")
+    _, _, bf16 = tr._run_backward(tr.params, tr.aux, dev, None)
+    tr.compute_dtype = None
+    _, _, f32 = tr._run_backward(tr.params, tr.aux, dev, None)
+    tr.compute_dtype = torch.bfloat16
+    grad = _rel_norms(bf16, f32)
+    finite = all(bool(torch.isfinite(g).all()) for g in bf16.values())
+    del bf16, f32
+    worst = max(grad, key=grad.get)
+    head = {n: grad[n] for n in RESNET_BF16_HEAD_TOL}
+    _emit({"resnet_bf16_grads_vs_float32": "first step", "finite": finite,
+           "head": head, "head_tolerance": RESNET_BF16_HEAD_TOL,
+           "grad_rel_err_max": grad[worst], "worst": worst,
+           "median": statistics.median(grad.values())})
+    if not finite or not all(head[n] <= tol for n, tol in
+                             RESNET_BF16_HEAD_TOL.items()):
+        raise AssertionError("bfloat16 ResNet gradients: head %s (tolerance "
+                             "%s), finite %s" % (head, RESNET_BF16_HEAD_TOL,
+                                                 finite))
+
+    steps, last = [], {}
+
+    def on_batch(param):
+        """Synchronise; the step's time and cross-entropy; no batch copied
+        on its way in."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        m = param.eval_metric
+        staged = param.locals["data_batch"].data[0].data
+        steps.append({"s": now - last["t"], "ce": (
+            m.sum_metric - last["sum"]) / (m.num_inst - last["n"]),
+            "on_card": staged.is_cuda})
+        last.update(t=now, sum=m.sum_metric, n=m.num_inst)
+
+    metric = mt.metric.CrossEntropy()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    last.update(t=time.perf_counter(), sum=0.0, n=0)
+    mod.fit(data, num_epoch=1, kvstore="local", optimizer="sgd",
+            optimizer_params=RESNET_SGD,
+            initializer=mt.init.Xavier(**RESNET_INIT), eval_metric=metric,
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("train_resnet_bf16", launches)
+    replay_s = statistics.median(s["s"] for s in steps[2:])
+    record = {"train_resnet_bf16": "resnet-50 NHWC", "batch": RESNET_BATCH,
+              "image": RESNET_IMAGE, "compute_dtype": "bfloat16",
+              "optimizer": "sgd", **RESNET_SGD, "steps": len(steps),
+              "setup_s": setup_s, "first_step_s": steps[0]["s"],
+              "capture_step_s": steps[1]["s"], "replay_step_s": replay_s,
+              "step_ms": replay_s * 1e3,
+              "img_per_s": RESNET_BATCH / replay_s,
+              "step_s_runs": [s["s"] for s in steps],
+              "cross_entropy_by_step": [s["ce"] for s in steps],
+              "peak_memory_bytes": peak,
+              "graph_captures": tr.graph_captures,
+              "graph_replays": tr.graph_replays, "launches": launches,
+              "phase_s": time.perf_counter() - t_phase}
+    _emit(record)
+    print("resnet-50 bf16 batch %d: step %.2f ms, %.1f img/s, peak %.2f GB, "
+          "first step %.2f s, capture step %.2f s, phase %.1f s"
+          % (RESNET_BATCH, record["step_ms"], record["img_per_s"], peak / 1e9,
+             record["first_step_s"], record["capture_step_s"],
+             record["phase_s"]), flush=True)
+    ce = record["cross_entropy_by_step"]
+    if len(steps) != RESNET_STEPS or not all(s["on_card"] for s in steps):
+        raise AssertionError("ResNet training gave %s" % record)
+    if (tr.graph_captures, tr.graph_replays) != (1, RESNET_STEPS - 1):
+        raise AssertionError("%d captures and %d replays in %d steps"
+                             % (tr.graph_captures, tr.graph_replays,
+                                RESNET_STEPS))
+    if not all(math.isfinite(c) for c in ce) or not ce[-1] < ce[0]:
+        raise AssertionError("cross-entropy went from %g to %g"
+                             % (ce[0], ce[-1]))
+    del mod, data, tr, dev, x, y
+    torch.cuda.empty_cache()
+    return launches, record
+
+
 def times(latencies):
     """Kernel, plain and library times at the serving shapes; returns
     each attention kernel's record by (kernel, dtype), the kernels "K1"
@@ -1604,6 +1918,12 @@ def main():
         "perplexity_by_epoch")} for name, rec in trains.items()},
         "card": card})
     sentinel()
+    # the ResNet path runs none of the port's kernels: its convolutions,
+    # pooling and BatchNorm are PyTorch ops, as the JAX package leaves them
+    # to XLA; both phases assert that every count stays 0
+    paths["train_resnet_vs_cpu"] = train_resnet_vs_cpu()
+    paths["train_resnet_bf16"], trains["train_resnet_bf16"] = \
+        train_resnet_bf16()
     records = times(latencies)
     gelu = rtc_times()
     lines = []

@@ -2,11 +2,11 @@
 torch tensors inside, hand-written Hopper kernels where the JAX package
 has Pallas kernels.  It imports neither JAX nor ``mxnet_tpu``.
 
-It serves the transformer LM through :class:`Predictor`, trains it
-through ``mx.mod.Module.fit`` (on the card, the fused
-:class:`parallel.Trainer` step captured in one CUDA graph; elsewhere,
-or with ``MXTPU_MODULE_FUSED=never``, the classic executor path), and
-runs the
+It serves the transformer LM through :class:`Predictor`, trains it and
+the zoo's convnets (ResNet, LeNet, the MLP) through
+``mx.mod.Module.fit`` (on the card, the fused :class:`parallel.Trainer`
+step captured in one CUDA graph; elsewhere, or with
+``MXTPU_MODULE_FUSED=never``, the classic executor path), and runs the
 imperative path: ``mx.nd`` NDArrays and the ops they reach, recorded by
 ``mx.autograd``, and ``mx.rtc`` kernels compiled from CUDA C at runtime.
 """
@@ -31,6 +31,7 @@ from . import optimizer
 from . import metric
 from . import io
 from . import model
+from . import callback
 from . import module
 from . import module as mod
 from . import parallel

@@ -36,6 +36,9 @@ class _GraphProgram:
         self.output_entries = list(sym._outputs)
         self._arg_index = {n: i for i, n in enumerate(self.arg_names)}
         self._aux_index = {n: i for i, n in enumerate(self.aux_names)}
+        # the backward formulations' policy (op/bytediet.py); None
+        # takes the process default
+        self.dtype_policy = None
 
     def _eval(self, arg_vals: Sequence[torch.Tensor],
               aux_vals: Sequence[torch.Tensor], device: torch.device,
@@ -45,7 +48,8 @@ class _GraphProgram:
         tensor inputs create theirs.  In training, op bodies run under
         torch autograd wherever an input requires a gradient."""
         ctx = OpContext(is_train=is_train, device=device,
-                        rng=_random.generator(device))
+                        rng=_random.generator(device),
+                        dtype_policy=self.dtype_policy)
         env = {}
         aux_out = list(aux_vals)
         for n in self.nodes:

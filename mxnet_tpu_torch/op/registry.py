@@ -39,15 +39,20 @@ class OpContext:
     during shape inference.  ``rng`` is that device's ``torch.Generator``,
     which ops that declared ``uses_rng`` draw from (the reference's
     ``ResourceRequest::kRandom``); None where nothing draws.
+    ``dtype_policy`` selects the backward formulations
+    (``op/bytediet.py``): ``"bytediet"``, ``"legacy"``, or None for the
+    process default.
     """
 
-    __slots__ = ("is_train", "record", "device", "rng")
+    __slots__ = ("is_train", "record", "device", "rng", "dtype_policy")
 
-    def __init__(self, is_train=False, device=None, rng=None, record=None):
+    def __init__(self, is_train=False, device=None, rng=None, record=None,
+                 dtype_policy=None):
         self.is_train = is_train
         self.record = is_train if record is None else record
         self.device = torch.device("cpu") if device is None else device
         self.rng = rng
+        self.dtype_policy = dtype_policy
 
 
 def _parse_bool(v):
@@ -113,6 +118,7 @@ class Op:
     input_names: Any = ("data",)
     aux_names: Any = ()
     num_outputs: Any = 1  # int or callable(params) -> int
+    output_names: Any = None  # callable(params) -> names; default ["output"]
     infer_shape: Optional[Callable] = None  # (params, in_shapes) -> (in,out,aux)
     infer_dtype: Optional[Callable] = None
     uses_rng: bool = False  # the body draws from ``OpContext.rng``
@@ -135,6 +141,8 @@ class Op:
             else self.num_outputs
 
     def list_outputs(self, params) -> List[str]:
+        if self.output_names is not None:
+            return list(self.output_names(params))
         n = self.n_outputs(params)
         return ["output"] if n == 1 else ["output%d" % i for i in range(n)]
 

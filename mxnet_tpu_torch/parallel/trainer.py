@@ -15,13 +15,16 @@ carries on eagerly.  On the CPU the same step function runs eagerly every
 time, which is how the tests run it.
 
 Ported here: one device, ``compute_dtype`` (float32 master weights,
-gradients and aux states; narrow products summed in float32), the sentinel (off/skip/abort) with loss
-scaling (none, fixed or dynamic), ``grad_accum`` and the optimizer-state
-round trip.  A mesh, tensor-parallel ``param_specs``, ``zero=1``,
-``remat``, ``integrity``, tune plans (``plan=``), byte-diet dtype
-policies, the persisted program cache and the static analyses wait for
-later slices of the port, and each raises :class:`MXNetError` naming its
-slice.
+gradients and aux states; narrow products summed in float32), the
+``dtype_policy`` of the backward formulations, the sentinel
+(off/skip/abort) with loss scaling (none, fixed or dynamic),
+``grad_accum`` and the optimizer-state round trip.  Aux states (BatchNorm's
+moving statistics) are float32 masters, cast to the compute dtype for the
+forward like the params, and the step writes their new values into them
+in place.  A mesh, tensor-parallel ``param_specs``, ``zero=1``,
+``remat``, ``integrity``, tune plans (``plan=``), the persisted program
+cache and the static analyses wait for later slices of the port, and
+each raises :class:`MXNetError` naming its slice.
 """
 from __future__ import annotations
 
@@ -185,12 +188,13 @@ class Trainer:
         if remat not in ("", "none"):
             raise MXNetError("remat=%r: rematerialization waits for the "
                              "port's remat slice" % (remat,))
-        dtype_policy = _knob(dtype_policy, "MXTPU_DTYPE_POLICY", None)
-        if dtype_policy not in (None, "legacy"):
-            raise MXNetError(
-                "dtype_policy=%r: the byte-diet backward formulations wait "
-                "for the port's ResNet slice (the port's backwards are the "
-                "plain autodiff ones, 'legacy')" % (dtype_policy,))
+        # the backward formulations (op/bytediet.py): "bytediet" (the
+        # default) or "legacy"
+        self.dtype_policy = _knob(dtype_policy, "MXTPU_DTYPE_POLICY", None)
+        if self.dtype_policy not in (None, "bytediet", "legacy"):
+            raise MXNetError("unknown dtype_policy %r (bytediet|legacy)"
+                             % (self.dtype_policy,))
+        self.prog.dtype_policy = self.dtype_policy
         # --- step sentinel: the float32 gradients' global finiteness,
         # inside the step; a non-finite batch selects the old params,
         # aux and optimizer state, with no host round trip
