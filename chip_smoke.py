@@ -87,7 +87,19 @@ fails:
    for 12 steps of one repeated batch made on the card: one capture and a
    replay a step, no input copied, none of the port's kernels launched,
    the first step's head gradients against float32 compute's, a falling
-   cross-entropy; step ms, img/s and peak memory;
+   cross-entropy; step ms, img/s and peak memory; then
+   train_resnet_records: bench.py's record file (512 random 256 x 256
+   JPEGs, quality 90) written to a temporary directory, the port's native
+   loader built (libjpeg, else nvJPEG) and its batch held against
+   Pillow's decode, decode img/s and one batch's pinned upload timed
+   alone, the on-card augment held against plain crops and numpy slicing;
+   then the cell trained RECORDS_STEPS steps by ``Module.fit`` with a
+   ``dist_sync_tpu`` store through each of bench.py's pipelines, cached
+   (``DeviceCacheIter``) and stream (loader -> ``DeviceUploadIter`` ->
+   ``StreamAugmentIter``): every batch on the card and uncopied, int32
+   labels, one capture and a replay a step, none of the port's kernels;
+   img/s, step ms, the bound, efficiency, the uploader's stats, the
+   device idle share of 3 traced steps, peak memory;
 13. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
@@ -202,6 +214,24 @@ RESNET_GRAD_MEDIAN_TOL, RESNET_GRAD_MAX_TOL = 0.2, 1.0
 # being finite
 RESNET_BF16_HEAD_GAP = {"fc1_bias": 2.107e-3, "fc1_weight": 0.1705}
 RESNET_BF16_HEAD_TOL = {n: 3 * g for n, g in RESNET_BF16_HEAD_GAP.items()}
+# train_resnet_records: bench.py's real-data pipelines (bench.py:52-71,
+# 165-300): its record file (RECORDS_IMAGES random 256 x 256 JPEGs at
+# quality 90 from seed 0, labels i % 1000), the cached pipeline
+# (DeviceCacheIter: storage 256^2, 224^2 random crops and mirrors, shuffled,
+# seed 7) and the stream pipeline (the loader crops 224^2 on the host,
+# DeviceUploadIter depth 2 in 4 chunks, StreamAugmentIter mirrors, seed
+# 11), each training the ResNet cell RECORDS_STEPS steps through fit
+RECORDS_IMAGES, RECORDS_SIDE, RECORDS_QUALITY = 512, 256, 90
+RECORDS_STEPS, RECORDS_TRACED_STEPS = 12, 3
+CACHE_SEED, STREAM_SEED = 7, 11
+STREAM_DEPTH, STREAM_CHUNKS = 2, 4
+# the loader's pixels against Pillow's decode of the same JPEGs (libjpeg,
+# which the loader's libjpeg route matches bit for bit).  The nvJPEG route
+# differs by its IDCT alone (it upsamples chroma and converts colour as
+# libjpeg does): tools/torch_loader_probe.py measured at most 3 and a mean
+# of 0.049 on bench.py's file, at most 3 on 4:4:4, 4:2:2 and 4:2:0 files
+LOADER_TOL = {"libjpeg": {"max_abs": 0, "mean_abs": 0.0},
+              "nvjpeg": {"max_abs": 4, "mean_abs": 0.1}}
 # serve_server: the JAX package's documented serving cell
 # (docs/how_to/serving.md:33-45, tools/serve_bench.py:131-142): buckets,
 # the request rows mix (serve_bench's default), ResNet-50's image side,
@@ -2408,6 +2438,392 @@ def train_resnet_bf16():
 
 
 # ----------------------------------------------------------------------
+# train_resnet_records: ResNet-50 from a RecordIO file
+def write_records(path):
+    """bench.py's record file (``_ensure_rec``): RECORDS_IMAGES random
+    RECORDS_SIDE^2 JPEGs at quality RECORDS_QUALITY from seed 0, labels
+    ``i % 1000``; returns the JPEG bytes."""
+    import io as pio
+    from PIL import Image
+    rng = np.random.RandomState(SEED)
+    rec, jpegs = mt.recordio.MXRecordIO(path, "w"), []
+    for i in range(RECORDS_IMAGES):
+        buf = pio.BytesIO()
+        Image.fromarray(rng.randint(0, 255, (RECORDS_SIDE, RECORDS_SIDE, 3),
+                                    dtype=np.uint8)).save(
+            buf, format="JPEG", quality=RECORDS_QUALITY)
+        jpegs.append(buf.getvalue())
+        rec.write(mt.recordio.pack(
+            mt.recordio.IRHeader(0, float(i % 1000), i, 0), buf.getvalue()))
+    rec.close()
+    return jpegs
+
+
+def native_loader(rec, side, **kw):
+    """``ImageRecordIter`` forced to the native loader: uint8 NHWC host
+    batches of RESNET_BATCH, one decode thread a core."""
+    it = mt.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, side, side), batch_size=RESNET_BATCH,
+        layout="NHWC", dtype="uint8", output="numpy",
+        preprocess_threads=os.cpu_count(), backend="native", **kw)
+    if type(it) is not mt.io.NativeImageRecordIter:
+        raise AssertionError("ImageRecordIter gave %s" % type(it).__name__)
+    return it
+
+
+def check_loader(rec, jpegs):
+    """The loader's first batch against Pillow's decode of the same JPEGs
+    (BGR), within its route's LOADER_TOL; its labels and failures."""
+    import io as pio
+    from PIL import Image
+    from mxnet_tpu_torch import _native
+    t0 = time.perf_counter()
+    route = _native.jpeg_route()
+    build_s = time.perf_counter() - t0
+    it = native_loader(rec, RECORDS_SIDE)
+    b = it.next()
+    want = np.stack([np.asarray(Image.open(pio.BytesIO(j)).convert("RGB"))
+                     [:, :, ::-1] for j in jpegs[:RESNET_BATCH]])
+    diff = np.abs(b.data[0].astype(np.int32) - want.astype(np.int32))
+    err = {"max_abs": int(diff.max()), "mean_abs": float(diff.mean())}
+    tol = LOADER_TOL[route]
+    record = {"jpeg_route": route, "png": bool(
+        _native.dataloader_lib().mxt_loader_has_png()), "build_s": build_s,
+              "vs_pillow": err, "tolerance": tol,
+              "failures": it.failures()}
+    _emit({"records_loader": record})
+    if err["max_abs"] > tol["max_abs"] or err["mean_abs"] > tol["mean_abs"] \
+            or it.failures() or not np.array_equal(
+                b.label[0], np.arange(RESNET_BATCH, dtype=np.float32)):
+        raise AssertionError("the native loader's batch is off: %s"
+                             % record)
+    return record
+
+
+def decode_and_h2d(rec):
+    """The stages alone (bench.py:250-283): decode img/s of the stream's
+    loader (224^2 random crops, one thread a core) over 4 batches after a
+    warm one, and the median ms of one 256 x 224 x 224 x 3 uint8 upload
+    from a pinned slot."""
+    it = native_loader(rec, RESNET_IMAGE, rand_crop=True)
+    probe = it.next().data[0]
+    t0, n = time.perf_counter(), 0
+    while n < 4 * RESNET_BATCH:
+        try:
+            it.next()
+            n += RESNET_BATCH
+        except StopIteration:
+            it.reset()
+    decode = n / (time.perf_counter() - t0)
+    pinned = torch.from_numpy(probe).pin_memory()
+    dst = torch.empty(pinned.shape, dtype=torch.uint8, device="cuda")
+    h2d_ms = cuda_ms(lambda: dst.copy_(pinned, non_blocking=True),
+                     warmup=2, iters=7)
+    return decode, h2d_ms, probe
+
+
+class EndlessIter:
+    """bench.py's ``_EndlessIter``: ``next()`` wraps epochs by resetting
+    the inner iterator, so the stage ahead never sees an epoch's end."""
+
+    def __init__(self, it):
+        self.it = it
+        self.batch_size = it.batch_size
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+
+    def next(self):
+        try:
+            return self.it.next()
+        except StopIteration:
+            self.it.reset()
+            return self.it.next()
+
+    def reset(self):
+        self.it.reset()
+
+
+class Int32Labels(mt.io.DataIter):
+    """The batches of ``inner`` with their float32 labels cast to int32 on
+    the card: under bfloat16 compute float labels above 256 would round
+    (ROADMAP §C).  ``changed`` counts, on the card, the labels that cast
+    would have changed."""
+
+    def __init__(self, inner):
+        super().__init__(inner.batch_size)
+        self.inner = inner
+        self.provide_data = inner.provide_data
+        self.provide_label = [mt.io.DataDesc(d.name, d.shape, np.int32)
+                              for d in inner.provide_label]
+        self.changed = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def reset(self):
+        self.inner.reset()
+
+    def next(self):
+        b = self.inner.next()
+        label = b.label[0].data
+        self.changed += (label.to(torch.bfloat16).float() != label).sum()
+        b.label = [mt.nd.NDArray(label.to(torch.int32))]
+        return b
+
+
+def device_idle_share(prof, wall_s):
+    """1 - (the union of the device's kernel and copy intervals) / wall."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    if not spans:
+        raise AssertionError("the profiler recorded no device work")
+    return 1.0 - busy_us / 1e6 / wall_s, len(spans)
+
+
+def records_fit(name, train_data, compute_s):
+    """``Module.fit`` of the ResNet cell (a fresh module, bench.py's
+    _build_module with a ``dist_sync_tpu`` store) over ``train_data``
+    (RECORDS_STEPS batches); then RECORDS_TRACED_STEPS more steps of the
+    same batches under ``torch.profiler`` for the idle share.  Asserts
+    every batch arrives on the card, enters the step uncopied and has
+    int32 labels; one capture and a replay every step after it; a finite
+    cross-entropy; none of the port's kernels launched.  Returns the
+    record."""
+    symbol = mt.models.get_symbol("resnet-50", **RESNET)
+    mod = mt.mod.Module(symbol, context=mt.gpu(), compute_dtype="bfloat16")
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    mod.bind(train_data.provide_data, train_data.provide_label)
+    mod.init_params(mt.init.Xavier(**RESNET_INIT))
+    store = mt.kvstore.create("dist_sync_tpu")
+    mod.init_optimizer(kvstore=store, optimizer="sgd",
+                       optimizer_params=dict(RESNET_SGD,
+                                             rescale_grad=1.0 / RESNET_BATCH))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tr = mod._trainer
+    if tr is None or store.type != "dist_sync_tpu" or store.num_workers != 1:
+        raise AssertionError("the records cell left the fused path")
+    steps, last, staged = [], {}, {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        m, batch = param.eval_metric, param.locals["data_batch"]
+        x, y = batch.data[0].data, batch.label[0].data
+        dev = tr._device_batch({"data": x, "softmax_label": y})
+        steps.append({"s": now - last["t"], "ce": (
+            m.sum_metric - last["sum"]) / (m.num_inst - last["n"]),
+            "on_card": x.is_cuda and y.is_cuda,
+            "uncopied": dev["data"] is x and dev["softmax_label"] is y,
+            "int32": y.dtype == torch.int32, "dtype": str(x.dtype)})
+        staged["uploader"] = param.locals["train_data"]
+        last.update(t=now, sum=m.sum_metric, n=m.num_inst)
+
+    metric = mt.metric.CrossEntropy()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    last.update(t=time.perf_counter(), sum=0.0, n=0)
+    mod.fit(train_data, num_epoch=1, kvstore=store, optimizer="sgd",
+            eval_metric=metric, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    captures, replays = tr.graph_captures, tr.graph_replays
+    peak = torch.cuda.max_memory_allocated()
+    uploader = staged["uploader"]
+    fit_stats = uploader.stats() if hasattr(uploader, "stats") else None
+    expect_launches(name, launches)
+    train_data.reset()
+    batches = [train_data.next() for _ in range(RECORDS_TRACED_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            mod.forward(b, is_train=True)
+            mod.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, events = device_idle_share(prof, wall)
+    replay = [s["s"] for s in steps[2:]]
+    step_s = statistics.median(replay)
+    record = {"train_resnet_records": name, "batch": RESNET_BATCH,
+              "image": RESNET_IMAGE, "compute_dtype": "bfloat16",
+              "kvstore": store.type, "steps": len(steps),
+              "setup_s": setup_s, "first_step_s": steps[0]["s"],
+              "capture_step_s": steps[1]["s"], "step_ms": step_s * 1e3,
+              "step_ms_range": [min(replay) * 1e3, max(replay) * 1e3],
+              "img_per_s": RESNET_BATCH / step_s,
+              "bound_ms": compute_s * 1e3,
+              "efficiency": compute_s / step_s,
+              "cross_entropy_by_step": [s["ce"] for s in steps],
+              "data_dtype": steps[0]["dtype"],
+              "fit_uploader_stats": fit_stats,
+              "traced_steps": len(batches), "traced_wall_s": wall,
+              "device_idle_share": idle, "device_events": events,
+              "peak_memory_bytes": peak, "graph_captures": captures,
+              "graph_replays": replays, "launches": launches}
+    if len(steps) != RECORDS_STEPS or not all(
+            s["on_card"] and s["uncopied"] and s["int32"] for s in steps):
+        raise AssertionError("%s: a batch reached the step off the card, "
+                             "copied or with float labels: %s"
+                             % (name, steps))
+    if (captures, replays) != (1, RECORDS_STEPS - 1):
+        raise AssertionError("%s: %d captures and %d replays in %d steps"
+                             % (name, captures, replays, RECORDS_STEPS))
+    if not all(math.isfinite(s["ce"]) for s in steps):
+        raise AssertionError("%s: cross-entropy %s" % (
+            name, record["cross_entropy_by_step"]))
+    del mod, tr, batches, uploader, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+class OneBatch(mt.io.DataIter):
+    """One batch of frames (host or card) and labels, once an epoch."""
+
+    def __init__(self, frames, labels):
+        super().__init__(frames.shape[0])
+        self.frames, self.labels, self.done = frames, labels, False
+        self.provide_data = [mt.io.DataDesc("data", tuple(frames.shape),
+                                            np.uint8)]
+        self.provide_label = [mt.io.DataDesc("softmax_label",
+                                             tuple(labels.shape))]
+
+    def next(self):
+        if self.done:
+            raise StopIteration
+        self.done = True
+        return mt.io.DataBatch([self.frames], [self.labels], pad=0)
+
+    def reset(self):
+        self.done = False
+
+
+def check_augment(cache):
+    """The on-card augment on the cached frames of ``cache`` (a
+    DeviceCacheIter): with crops and mirrors off, the gather of a
+    shuffled batch (DeviceCacheIter) and of a whole batch
+    (StreamAugmentIter) against a plain PyTorch crop on the CPU of the
+    same uint8 frames, bitwise; with them on, against numpy slicing at
+    the offsets and flips the iterators drew."""
+    frames = cache._data.cpu()
+    labels = cache._label[:RESNET_BATCH].cpu()
+    c = (RECORDS_SIDE - RESNET_IMAGE) // 2
+    side = RESNET_IMAGE
+    checked = {}
+    for what, rand in (("off", False), ("on", True)):
+        cached = mt.io.DeviceCacheIter(
+            OneBatch(frames, torch.arange(len(frames)).float()),
+            data_shape=(side, side), rand_crop=rand, rand_mirror=rand,
+            shuffle=True, seed=CACHE_SEED, batch_size=RESNET_BATCH)
+        stream = mt.io.StreamAugmentIter(
+            OneBatch(frames[:RESNET_BATCH], labels),
+            data_shape=(side, side), rand_crop=rand, rand_mirror=rand,
+            seed=STREAM_SEED)
+        for name, it in (("cache", cached), ("stream", stream)):
+            b = it.next()
+            got = b.data[0].data.cpu()
+            rows = b.label[0].data.cpu().long() if name == "cache" \
+                else torch.arange(RESNET_BATCH)
+            if not rand:
+                want = torch.stack([frames[r, c:c + side, c:c + side]
+                                    for r in rows.tolist()])
+                ok = torch.equal(got, want)
+            else:
+                oy, ox, flip = (t.cpu().numpy() for t in it.last_draw)
+                host = frames.numpy()
+                want = np.stack([
+                    host[r, y:y + side, x:x + side][:, ::-1] if f
+                    else host[r, y:y + side, x:x + side]
+                    for r, y, x, f in zip(rows.tolist(), oy, ox, flip)])
+                ok = np.array_equal(got.numpy(), want)
+                checked["%s_flip_share" % name] = float(flip.mean())
+            checked["%s_%s" % (name, what)] = ok
+    _emit({"records_augment_check": checked})
+    if not all(v for k, v in checked.items() if not k.endswith("share")):
+        raise AssertionError("the on-card augment is off: %s" % checked)
+    return checked
+
+
+def train_resnet_records(card, synthetic):
+    """ResNet-50 from bench.py's record file through both of its real-data
+    pipelines, each trained RECORDS_STEPS steps by ``Module.fit`` with a
+    ``dist_sync_tpu`` store; ``synthetic`` is train_resnet_bf16's record,
+    whose replay step is the compute bound.  Returns (the launches of
+    both pipelines' fits, the phase record)."""
+    _phase("train_resnet_records")
+    t_phase = time.perf_counter()
+    compute_s = synthetic["replay_step_s"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "bench.rec")
+        t0 = time.perf_counter()
+        jpegs = write_records(rec)
+        write_s = time.perf_counter() - t0
+        loader = check_loader(rec, jpegs)
+        decode, h2d_ms, _ = decode_and_h2d(rec)
+
+        t0 = time.perf_counter()
+        cache = mt.io.DeviceCacheIter(
+            native_loader(rec, RECORDS_SIDE),
+            data_shape=(RESNET_IMAGE, RESNET_IMAGE), rand_crop=True,
+            rand_mirror=True, shuffle=True, seed=CACHE_SEED)
+        torch.cuda.synchronize()
+        cache_build_s = time.perf_counter() - t0
+        augment = check_augment(cache)
+        cached_labels = Int32Labels(mt.io.ResizeIter(cache, RECORDS_STEPS))
+        cached = records_fit("cached", cached_labels, compute_s)
+        cached.update(cache_build_s=cache_build_s,
+                      cache_nbytes=cache.cache_nbytes(),
+                      cache_images=cache.num_data,
+                      labels_changed_by_bf16_cast=int(cached_labels.changed))
+        del cache, cached_labels
+        torch.cuda.empty_cache()
+
+        up = mt.io.DeviceUploadIter(
+            EndlessIter(native_loader(rec, RESNET_IMAGE, rand_crop=True)),
+            depth=STREAM_DEPTH, chunks=STREAM_CHUNKS)
+        stream_labels = Int32Labels(mt.io.ResizeIter(
+            mt.io.StreamAugmentIter(up, rand_mirror=True, seed=STREAM_SEED),
+            RECORDS_STEPS))
+        bound_s = max(RESNET_BATCH / decode, h2d_ms / 1e3, compute_s)
+        binding = ("decode", "h2d", "compute")[[
+            RESNET_BATCH / decode, h2d_ms / 1e3, compute_s].index(bound_s)]
+        stream = records_fit("stream", stream_labels, bound_s)
+        up._shutdown_worker()
+        stream.update(uploader_stats=up.stats(), binding_stage=binding,
+                      labels_changed_by_bf16_cast=int(stream_labels.changed))
+        del up, stream_labels
+    record = {"card": card, "write_s": write_s, "loader": loader,
+              "decode_img_per_s": decode, "decode_threads": os.cpu_count(),
+              "decode_ms_per_batch": RESNET_BATCH / decode * 1e3,
+              "h2d_ms_per_batch": h2d_ms,
+              "compute_ms_per_batch": compute_s * 1e3,
+              "synthetic_img_per_s": RESNET_BATCH / compute_s,
+              "augment_check": augment, "cached": cached, "stream": stream,
+              "phase_s": time.perf_counter() - t_phase}
+    _emit({"train_resnet_records": record})
+    for name in ("cached", "stream"):
+        r = record[name]
+        print("records %s: %.1f img/s, step %.2f ms (%.2f-%.2f), bound %.2f "
+              "ms, efficiency %.3f, idle %.3f, peak %.2f GB"
+              % (name, r["img_per_s"], r["step_ms"], *r["step_ms_range"],
+                 r["bound_ms"], r["efficiency"], r["device_idle_share"],
+                 r["peak_memory_bytes"] / 1e9), flush=True)
+    print("records: %s decode %.1f img/s on %d threads, h2d %.3f ms a batch, "
+          "phase %.1f s" % (loader["jpeg_route"], decode, os.cpu_count(),
+                            h2d_ms, record["phase_s"]), flush=True)
+    launches = {k: cached["launches"][k] + stream["launches"][k]
+                for k in cached["launches"]}
+    return launches, record
+
+
+# ----------------------------------------------------------------------
 # open-loop load: tools/serve_bench.py's arrival engine, ported
 def arrival_schedule(n, rate_rps, seed):
     """``n`` cumulative Poisson arrival times at ``rate_rps``, seeded:
@@ -2749,6 +3165,8 @@ def main():
     paths["train_resnet_vs_cpu"] = train_resnet_vs_cpu()
     paths["train_resnet_bf16"], trains["train_resnet_bf16"] = \
         train_resnet_bf16()
+    paths["train_resnet_records"], _ = train_resnet_records(
+        card, trains["train_resnet_bf16"])
     records = times(latencies)
     gelu = rtc_times()
     # the paths that replay a captured graph: what one replay launched (a

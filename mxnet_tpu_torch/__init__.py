@@ -11,6 +11,10 @@ step captured in one CUDA graph; elsewhere, or with
 ``MXTPU_MODULE_FUSED=never``, the classic executor path), and runs the
 imperative path: ``mx.nd`` NDArrays and the ops they reach, recorded by
 ``mx.autograd``, and ``mx.rtc`` kernels compiled from CUDA C at runtime.
+Training reads RecordIO files of JPEGs through ``mx.io.ImageRecordIter``
+(a native loader built from ``csrc/dataloader.cc``), staged onto the card
+and augmented there (``DeviceUploadIter``, ``StreamAugmentIter``,
+``DeviceCacheIter``), with ``mx.kvstore`` stores on one device.
 """
 from . import base
 from .base import Context, MXNetError, cpu, gpu, current_context
@@ -31,7 +35,10 @@ from . import initializer as init
 from . import lr_scheduler
 from . import optimizer
 from . import metric
+from . import recordio
 from . import io
+from . import image
+from . import kvstore
 from . import model
 from . import callback
 from . import module

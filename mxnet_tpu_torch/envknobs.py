@@ -86,6 +86,15 @@ KNOBS: Dict[str, _Knob] = dict((
        "ModelServer construction (env and ctor args override it)"),
     _k("MXTPU_STRICT_KNOBS", "bool", False, "envknobs",
        "escalate unknown-knob warnings to MXNetError"),
+    # --- input pipeline ----------------------------------------------------
+    _k("MXTPU_UPLOAD_OVERLAP", "bool", None, "io",
+       "wrap fit() feeding in DeviceUploadIter (default: multi-core)"),
+    _k("MXTPU_UPLOAD_DEPTH", "int", 2, "io",
+       "device staging buffers ahead of the step"),
+    _k("MXTPU_UPLOAD_CHUNKS", "int", 1, "io",
+       "chunked async device_puts per host batch"),
+    _k("MXTPU_DECODE_START_METHOD", "str", None, "io",
+       "multiprocessing start method for decode workers"),
     # --- serving -----------------------------------------------------------
     _k("MXTPU_SERVE_BUCKETS", "list", [1, 4, 8, 16, 32], "serving",
        "AOT batch bucket ladder (comma ints)"),

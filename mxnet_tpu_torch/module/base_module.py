@@ -4,9 +4,10 @@ and predict drivers over a subclass's computation primitives.
 The reference's surface (``python/mxnet/module/base_module.py``):
 ``fit``, ``score``, ``predict``, ``iter_predict``, ``forward_backward``,
 the bind -> init_params -> init_optimizer lifecycle and ``arg:``/``aux:``
-parameter files.  The JAX package's observability, resilience, elastic,
-integrity and upload-overlap hooks around the epoch loop are not part of
-the port yet.
+parameter files.  On the fused path ``fit`` stages each batch's upload
+ahead of its step (:class:`~mxnet_tpu_torch.io.DeviceUploadIter`), as the
+JAX package's does.  Its observability, resilience, elastic and
+integrity hooks around the epoch loop are not part of the port yet.
 
 At an epoch's end ``fit`` copies the trained values to the host and
 writes them back (``set_params``), as the JAX package's does; on the
@@ -162,7 +163,46 @@ class BaseModule(object):
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         validation_metric = validation_metric or eval_metric
+        # the fused path: stage batch N+1's upload while step N computes
+        staged = self._maybe_overlap_uploads(train_data)
+        wrapped = staged is not train_data
+        try:
+            self._fit_epochs(staged, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, begin_epoch, num_epoch)
+        finally:
+            if wrapped:
+                staged._shutdown_worker()
 
+    def _maybe_overlap_uploads(self, train_data):
+        """``train_data`` wrapped in a
+        :class:`~mxnet_tpu_torch.io.DeviceUploadIter` on the module's
+        context when the fused Trainer consumes it, so each batch's upload
+        overlaps the previous step (``mxnet_tpu/module/base_module.py:424``).
+        ``MXTPU_UPLOAD_OVERLAP=0`` turns it off, ``=1`` on; by default it
+        is on where the host has more than one core.
+        ``MXTPU_UPLOAD_DEPTH`` (default 2) bounds the staged batches,
+        ``MXTPU_UPLOAD_CHUNKS`` (default 1) splits each host batch's
+        upload into row chunks."""
+        import os
+        from .. import envknobs
+        from ..io import DeviceUploadIter
+        knob = os.environ.get("MXTPU_UPLOAD_OVERLAP", "")
+        enabled = knob == "1" or (knob != "0"
+                                  and (os.cpu_count() or 1) > 1)
+        if (getattr(self, "_trainer", None) is None or not enabled
+                or isinstance(train_data, DeviceUploadIter)):
+            return train_data
+        return DeviceUploadIter(
+            train_data, device=self._context[0],
+            depth=envknobs.get_int("MXTPU_UPLOAD_DEPTH", 2),
+            chunks=envknobs.get_int("MXTPU_UPLOAD_CHUNKS", 1))
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback, batch_end_callback,
+                    eval_end_callback, eval_batch_end_callback, begin_epoch,
+                    num_epoch):
         for epoch in range(begin_epoch, num_epoch):
             elapsed = self._train_epoch(epoch, train_data, eval_metric,
                                         batch_end_callback)

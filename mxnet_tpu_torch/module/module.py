@@ -18,8 +18,11 @@ paths, as in the JAX package:
   needs no KVStore, as in the reference).  It also takes an optimizer
   without a pure rule, with a logged warning, as the JAX package does.
 
-A mesh context, several contexts and a ``dist`` KVStore raise, naming
-the port's mesh and KVStore slice.
+A KVStore on one device (a store object, or a ``dist_sync`` string run
+in one process) keeps the fused path, as the JAX package's single-host
+fused path does; on the classic path a store owns the update, as in the
+reference.  A mesh context and several contexts raise, naming the port's
+mesh and KVStore slice.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from .. import optimizer as opt
 from ..base import Context, MXNetError, current_context
 from ..initializer import Uniform, InitDesc
 from ..io import DataDesc
-from ..model import _create_kvstore, _update_params, load_checkpoint
+from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
+                     _update_params_on_kvstore, load_checkpoint)
 from ..ndarray import zeros
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
@@ -88,6 +92,8 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._preload_opt_states = None
         self._exec_group = None
         self._data_shapes = None
@@ -338,17 +344,25 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """Install the optimizer (reference ``module.py:432-530``).  The
-        fused path makes its Trainer here; an optimizer without a pure
-        rule falls back, with a warning, to the classic path.  One device
-        with a local store updates through a local updater; a ``dist``
-        store, or several devices, needs the KVStore slice and raises."""
+        """Install the optimizer and the KVStore (reference
+        ``module.py:432-530``).  A ``dist`` string becomes its store first,
+        so the default ``rescale_grad`` covers the global batch (one
+        worker here).  The fused path makes its Trainer here and keeps it
+        with a store on one device, which has nothing to synchronise; an
+        optimizer without a pure rule falls back, with a warning, to the
+        classic path.  There a store owns the update when
+        ``_create_kvstore`` says so, else a local updater runs."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        _create_kvstore(kvstore, len(self._context))
+        from ..kvstore import KVStore, create as kv_create
+        if isinstance(kvstore, str) and "dist" in kvstore:
+            kvstore = kv_create(kvstore)
+        kv = kvstore if isinstance(kvstore, KVStore) else None
         batch_size = self._data_shapes[0].shape[0]
+        if kv is not None and "dist" in kv.type and "_async" not in kv.type:
+            batch_size *= kv.num_workers
         if isinstance(optimizer, str):
             idx2name = {i: n for i, n in enumerate(self._param_names)}
             optimizer_params = dict(optimizer_params)
@@ -370,6 +384,7 @@ class Module(BaseModule):
             from ..parallel.optim import _supports_fusion
             if _supports_fusion(optimizer):
                 self._trainer = self._new_trainer(optimizer)
+                self._kvstore, self._update_on_kvstore = None, False
                 self._finish_optimizer_init()
                 return
             # an optimizer without a pure fused-step rule (SGLD,
@@ -381,7 +396,17 @@ class Module(BaseModule):
             self._trainer = None
             self._bind_exec_group()
             self._exec_group.set_params(self._arg_params, self._aux_params)
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore, self._update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        if self._kvstore:
+            _initialize_kvstore(self._kvstore, self._exec_group.param_arrays,
+                                self._arg_params, self._param_names,
+                                self._update_on_kvstore)
+        if self._update_on_kvstore:
+            self._updater = None
+            self._kvstore.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self._finish_optimizer_init()
 
     def _finish_optimizer_init(self):
@@ -440,9 +465,16 @@ class Module(BaseModule):
             self._fused_outputs = self._trainer.step(self._staged_batch)
             self._staged_batch = None
             return
-        _update_params(self._exec_group.param_arrays,
-                       self._exec_group.grad_arrays, updater=self._updater,
-                       num_device=len(self._context))
+        if self._update_on_kvstore:
+            _update_params_on_kvstore(self._exec_group.param_arrays,
+                                      self._exec_group.grad_arrays,
+                                      self._kvstore)
+        else:
+            _update_params(self._exec_group.param_arrays,
+                           self._exec_group.grad_arrays,
+                           updater=self._updater,
+                           num_device=len(self._context),
+                           kvstore=self._kvstore)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -498,6 +530,9 @@ class Module(BaseModule):
 
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with open(fname, "wb") as fout:
             fout.write(self._trainer.get_opt_states()
                        if self._trainer is not None
@@ -505,6 +540,9 @@ class Module(BaseModule):
 
     def load_optimizer_states(self, fname):
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as fin:
             blob = fin.read()
         if self._trainer is None:

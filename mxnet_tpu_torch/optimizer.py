@@ -33,8 +33,8 @@ import torch
 from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "create", "get_updater",
-           "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "Test", "Updater", "create",
+           "get_updater", "register"]
 
 
 class Optimizer(object):
@@ -242,6 +242,28 @@ class Adam(Optimizer):
 
 
 create = Optimizer.create_optimizer
+
+
+@register
+class Test(Optimizer):
+    """The reference's deterministic test rule for the KVStore tests:
+    ``w += rescale_grad * g``, the state mirroring the weight."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        weight.data.add_(grad.data * self.rescale_grad)
+        state.data.copy_(weight.data)
+
+    def _state(self, w):
+        return torch.zeros_like(w)
+
+    def _rule(self, w, g, state, lr, wd, t):
+        w = w + self.rescale_grad * g
+        return w, w
 
 
 def _to_device(state, device):

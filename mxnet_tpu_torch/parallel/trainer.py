@@ -595,7 +595,10 @@ class Trainer:
             graph.register_generator_state(_random.generator(self.device))
         torch.cuda.synchronize(self.device)
         try:
-            with torch.cuda.graph(graph):
+            # thread_local: an input pipeline's threads (fit's upload
+            # worker, a loader's decoder) go on issuing their own streams'
+            # work, allocations and event waits while this thread captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outs = self._step_core(inputs)
         except Exception as err:       # noqa: BLE001 - re-raised, named
             raise MXNetError("capturing the train step in a CUDA graph "

@@ -63,3 +63,23 @@ def test_predictor_raises_without_cuda_unless_cpu_asked(monkeypatch):
     with pytest.raises(mt.MXNetError, match="no CUDA device"):
         mt.Predictor(symbol.tojson(), b"", {"data": (1, 4)}, dev_type=2)
     assert mt.cpu().torch_device() == torch.device("cpu")
+
+
+def test_the_port_builds_only_from_its_own_sources():
+    """No port source names the JAX package's native libraries or a path
+    into its ``native/`` tree: the native loader and the kernels build
+    from ``mxnet_tpu_torch/csrc`` alone."""
+    import re
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.op.kernels import build
+    pattern = re.compile(r"mxnet_tpu/lib|libmxtpu_|\bnative/")
+    sources = [p for p in (ROOT / "mxnet_tpu_torch").rglob("*")
+               if p.suffix in (".py", ".cc", ".cu", ".cuh", ".h")] \
+        + [ROOT / "chip_smoke.py"]
+    assert any(p.suffix == ".cc" for p in sources)
+    bad = [(str(p.relative_to(ROOT)), m.group(0)) for p in sources
+           for m in pattern.finditer(p.read_text())]
+    assert not bad
+    csrc = ROOT / "mxnet_tpu_torch" / "csrc"
+    assert _native.SOURCE.parent == build.CSRC == csrc
+    assert build.BUILD_DIR == ROOT / "mxnet_tpu_torch" / "_build"

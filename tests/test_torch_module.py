@@ -175,8 +175,12 @@ def test_requests_the_port_cannot_honour_raise(monkeypatch):
     mod.bind(data_shapes=[("data", (4, 10))],
              label_shapes=[("softmax_label", (4,))])
     mod.init_params()
+    # one process runs a dist store; several wait for the KVStore slice
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     with pytest.raises(mt.MXNetError, match="KVStore"):
         mod.init_optimizer(kvstore="dist_sync")
+    monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gpu = Module(sym)         # the default context, the card: fused path
     with pytest.raises(mt.MXNetError, match="no CUDA device"):
