@@ -100,7 +100,16 @@ fails:
    labels, one capture and a replay a step, none of the port's kernels;
    img/s, step ms, the bound, efficiency, the uploader's stats, the
    device idle share of 3 traced steps, peak memory;
-13. times: each kernel, its plain version and the PyTorch library call
+13. train_lstm_bucketing: examples/rnn/lstm_bucketing.py's bucketing LSTM
+   LM (2 LSTM layers of 200, vocabulary 10,000, batch 32, buckets 10-60)
+   through ``BucketingModule.fit`` for 2 epochs of the example's synthetic
+   corpus: first one float32 forward and backward a bucket against the
+   port's CPU run, and the ``RNN`` op at T 60 against the CPU's; then every
+   bucket bound, one parameter storage shared by all, every batch on the
+   card, the trained loss falling by epoch, none of the port's kernels;
+   step ms a bucket, tokens/s, each bucket's first use, the memory the six
+   buckets hold, the idle share and kernels of traced steps;
+14. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
@@ -232,6 +241,27 @@ STREAM_DEPTH, STREAM_CHUNKS = 2, 4
 # of 0.049 on bench.py's file, at most 3 on 4:4:4, 4:2:2 and 4:2:0 files
 LOADER_TOL = {"libjpeg": {"max_abs": 0, "mean_abs": 0.0},
               "nvjpeg": {"max_abs": 4, "mean_abs": 0.1}}
+# train_lstm_bucketing: examples/rnn/lstm_bucketing.py:27-43 (2 LSTM layers
+# of 200, embed 200, batch 32, buckets 10-60, pad and invalid label 0,
+# start label 1, SGD lr 0.01 momentum 0 wd 1e-5, a "device" store,
+# Perplexity(0), Xavier "in" 2.34) at lstm_lm's default vocabulary, 10,000
+# (PTB's), on the example's synthetic_corpus (:55-66) at that vocabulary:
+# LSTM_SENTENCES sentences from SEED, LSTM_EPOCHS epochs
+LSTM_LM = dict(num_hidden=200, num_embed=200, num_layers=2,
+               vocab_size=10000)
+LSTM_BUCKETS = [10, 20, 30, 40, 50, 60]
+LSTM_BATCH, LSTM_INVALID, LSTM_START = 32, 0, 1
+LSTM_SGD = {"learning_rate": 0.01, "momentum": 0.0, "wd": 1e-5}
+LSTM_INIT = dict(factor_type="in", magnitude=2.34)
+LSTM_SENTENCES, LSTM_EPOCHS, LSTM_TRACED_STEPS = 2000, 2, 3
+# one float32 forward and backward a bucket, card against the port's CPU
+# run from the same weights and batch (TF32 off on the card): outputs and
+# every gradient by largest error over the array's largest magnitude.
+# Measured on the H100: at most 1.03e-6 (bucket 40's pred_weight
+# gradient), the RNN op's 6.9e-7; a wrong gradient is off by order 1
+LSTM_CARD_TOL = 1e-5
+# the RNN op alone at the cell's widths: T 60, N 32, I = H = 200, 2 layers
+RNN_OP_SHAPE = dict(T=60, N=32, I=200, H=200, layers=2)
 # serve_server: the JAX package's documented serving cell
 # (docs/how_to/serving.md:33-45, tools/serve_bench.py:131-142): buckets,
 # the request rows mix (serve_bench's default), ResNet-50's image side,
@@ -2824,6 +2854,329 @@ def train_resnet_records(card, synthetic):
 
 
 # ----------------------------------------------------------------------
+# the bucketing LSTM LM: examples/rnn/lstm_bucketing.py's cell
+def synthetic_corpus(vocab_size, n, seed):
+    """examples/rnn/lstm_bucketing.py:55-66: Markov-ish random sentences
+    (each token followed by one of 7) with a bucketable length spread."""
+    rng = np.random.RandomState(seed)
+    sents = []
+    for _ in range(n):
+        length = int(rng.choice(LSTM_BUCKETS)) - rng.randint(0, 5)
+        state = rng.randint(LSTM_START, vocab_size)
+        sent = []
+        for _ in range(max(length, 2)):
+            state = (state * 31 + rng.randint(0, 7)) % vocab_size
+            sent.append(max(state, LSTM_START))
+        sents.append(sent)
+    return sents
+
+
+def _rel_max(got, want):
+    """The largest error over the reference array's largest magnitude."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def lstm_module(ctx):
+    """The example's BucketingModule on ``ctx``, its default bucket the
+    longest."""
+    with ctx:
+        return mt.mod.BucketingModule(
+            mt.models.lstm_lm.sym_gen_factory(**LSTM_LM),
+            default_bucket_key=max(LSTM_BUCKETS))
+
+
+def _bind_lstm(mod):
+    shape = (LSTM_BATCH, max(LSTM_BUCKETS))
+    mod.bind([("data", shape)], [("softmax_label", shape)])
+    mt.random.seed(SEED)
+    mod.init_params(mt.init.Xavier(**LSTM_INIT))
+
+
+def lstm_vs_cpu(batches):
+    """One float32 forward and backward a bucket through the example's
+    BucketingModule on the card and on the port's CPU, from the same
+    weights and batch (``batches``: one card batch a bucket): the
+    outputs and every parameter gradient by _rel_max, against
+    LSTM_CARD_TOL.  Returns {bucket: record}."""
+    card, host = lstm_module(mt.gpu()), lstm_module(mt.cpu())
+    _bind_lstm(card)
+    _bind_lstm(host)
+    host.set_params(*card.get_params())
+    errors = {}
+    for key, batch in sorted(batches.items()):
+        on_cpu = mt.io.DataBatch(
+            [mt.nd.array(batch.data[0].asnumpy(), ctx=mt.cpu())],
+            [mt.nd.array(batch.label[0].asnumpy(), ctx=mt.cpu())], pad=0,
+            bucket_key=key, provide_data=batch.provide_data,
+            provide_label=batch.provide_label)
+        grads = []
+        for mod, b in ((card, batch), (host, on_cpu)):
+            mod.forward(b, is_train=True)
+            mod.backward()
+            exe = mod._buckets[key]._exec_group.execs[0]
+            grads.append((mod.get_outputs()[0].data,
+                          {n: exe.grad_dict[n].data
+                           for n in mod._buckets[key]._param_names}))
+        (out, g), (ref_out, ref_g) = grads
+        by_name = {n: _rel_max(g[n], ref_g[n]) for n in ref_g}
+        worst = max(by_name, key=by_name.get)
+        errors[key] = {"output": _rel_max(out, ref_out),
+                       "grad_max": by_name[worst], "grad_worst": worst}
+        print("lstm card vs cpu, bucket %d: output %.3g, worst gradient "
+              "%.3g (%s)" % (key, errors[key]["output"], by_name[worst],
+                             worst), flush=True)
+    bad = {k: e for k, e in errors.items()
+           if max(e["output"], e["grad_max"]) > LSTM_CARD_TOL}
+    if bad:
+        raise AssertionError("lstm buckets off the CPU's step by more "
+                             "than %g: %s" % (LSTM_CARD_TOL, bad))
+    del card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errors
+
+
+def rnn_op_vs_cpu():
+    """The fused ``RNN`` op (lstm, RNN_OP_SHAPE) forward and backward on
+    the card against the CPU from the same inputs, and its card time
+    (CUDA events, forward alone and forward with backward)."""
+    from mxnet_tpu_torch.op.rnn_op import rnn_param_size
+    d = RNN_OP_SHAPE
+    op = mt.op.get("RNN")
+    params = op.parse_params(dict(state_size=d["H"], num_layers=d["layers"],
+                                  mode="lstm"))
+    rng = np.random.RandomState(SEED)
+    size = rnn_param_size("lstm", d["I"], d["H"], d["layers"], False)
+    state = (d["layers"], d["N"], d["H"])
+    host = [rng.normal(0, 1, (d["T"], d["N"], d["I"])),
+            rng.uniform(-0.1, 0.1, size), rng.normal(0, 0.5, state),
+            rng.normal(0, 0.5, state)]
+    cot = torch.from_numpy(rng.normal(0, 1, (d["T"], d["N"], d["H"]))
+                           .astype(np.float32))
+    results, calls = {}, {}
+    for dev in ("cuda", "cpu"):
+        leaves = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                  .requires_grad_() for a in host]
+        ctx = mt.op.OpContext(is_train=True, device=torch.device(dev))
+
+        def forward(leaves=leaves, ctx=ctx):
+            return op.apply(params, ctx, *leaves)[0][0]
+
+        out = forward()
+        results[dev] = [out] + list(torch.autograd.grad(
+            out, leaves, cot.to(dev)))
+        calls[dev] = (forward, leaves, cot.to(dev))
+    errors = [_rel_max(a, b) for a, b in zip(results["cuda"],
+                                             results["cpu"])]
+    forward, leaves, dcot = calls["cuda"]
+    record = {"shape": d, "output_err": errors[0],
+              "grad_errs": dict(zip(("data", "parameters", "state",
+                                     "state_cell"), errors[1:])),
+              "forward_ms": cuda_ms(forward, iters=10),
+              "forward_backward_ms": cuda_ms(
+                  lambda: torch.autograd.grad(forward(), leaves, dcot),
+                  iters=10)}
+    print("rnn op (lstm, T %d, N %d, I = H = %d, %d layers) card vs cpu: "
+          "output %.3g, gradients %.3g; %.3f ms forward, %.3f ms with "
+          "backward" % (d["T"], d["N"], d["H"], d["layers"], errors[0],
+                        max(errors[1:]), record["forward_ms"],
+                        record["forward_backward_ms"]), flush=True)
+    if max(errors) > LSTM_CARD_TOL:
+        raise AssertionError("the RNN op is off the CPU's by more than %g: "
+                             "%s" % (LSTM_CARD_TOL, record))
+    return record
+
+
+def traced_lstm_steps(mod, batch, n):
+    """``n`` training steps of one bucket under ``torch.profiler``: the
+    device idle share, and per step the wall ms, device events and
+    kernels."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, events = device_idle_share(prof, wall)
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    return {"steps": n, "idle_share": idle, "wall_ms": wall / n * 1e3,
+            "device_events": events / n, "kernels": kernels / n}
+
+
+def lstm_step_parts(mod, batch, n):
+    """Median host ms of forward, backward and update over ``n`` steps of
+    one bucket, each part ended by a synchronise."""
+    parts = {"forward": [], "backward": [], "update": []}
+    for _ in range(n):
+        for name, call in (("forward", lambda: mod.forward(batch, True)),
+                           ("backward", mod.backward),
+                           ("update", mod.update)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def train_lstm_bucketing(card):
+    """The bucketing LSTM LM of examples/rnn/lstm_bucketing.py through
+    ``BucketingModule.fit`` on the card (the LSTM_* cell): each bucket's
+    float32 step against the CPU's, the ``RNN`` op against the CPU's,
+    then LSTM_EPOCHS epochs of the synthetic corpus.  Asserts every
+    bucket bound and sharing one parameter storage, every batch on the
+    card, the loss the module trains (the perplexity over every label,
+    padding included) falling from epoch to epoch, none of the port's
+    kernels launched.  Prints step ms a bucket, tokens/s, each bucket's
+    first-use cost, the memory held with six buckets bound, and the idle
+    share and kernels of traced steps.  Returns (launches, record)."""
+    _phase("train_lstm_bucketing")
+    t_phase = time.perf_counter()
+    sents = synthetic_corpus(LSTM_LM["vocab_size"], LSTM_SENTENCES, SEED)
+    np.random.seed(SEED)
+    it = mt.rnn.BucketSentenceIter(sents, LSTM_BATCH, buckets=LSTM_BUCKETS,
+                                   invalid_label=LSTM_INVALID)
+    first = {}
+    for batch in it:
+        first.setdefault(batch.bucket_key, batch)
+    it.reset()
+    parity = lstm_vs_cpu(first)
+    rnn_op = rnn_op_vs_cpu()
+
+    mod = lstm_module(mt.gpu())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold, left out of this cell's memory
+    base = torch.cuda.memory_allocated()
+    host = {"load_avg": os.getloadavg(), "threads": threading.active_count(),
+            "cpus": os.cpu_count()}
+    t0 = time.perf_counter()
+    _bind_lstm(mod)
+    metric = mt.metric.CompositeEvalMetric(
+        [mt.metric.Perplexity(LSTM_INVALID), mt.metric.Perplexity(None)])
+    mod.init_optimizer(kvstore="device", optimizer="sgd",
+                       optimizer_params=LSTM_SGD)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps, epochs, last = [], {}, {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        batch = param.locals["data_batch"]
+        x, y = batch.data[0].data, batch.label[0].data
+        steps.append({"bucket": batch.bucket_key, "s": now - last["t"],
+                      "on_card": x.is_cuda and y.is_cuda,
+                      "padded": x.numel(),
+                      "real": int((x != LSTM_INVALID).sum().item())})
+        epochs[param.epoch] = dict(zip(("perplexity", "perplexity_all"),
+                                       param.eval_metric.get()[1]))
+        last["t"] = now
+
+    reset_launch_counts()
+    last["t"] = time.perf_counter()
+    mod.fit(it, eval_metric=metric, kvstore="device", optimizer="sgd",
+            optimizer_params=LSTM_SGD, num_epoch=LSTM_EPOCHS,
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_launches("train_lstm_bucketing", launches)
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    execs = {k: c._exec_group.execs[0] for k, c in mod._buckets.items()}
+    shared = all(
+        execs[k].arg_dict[n].data.data_ptr()
+        == execs[max(LSTM_BUCKETS)].arg_dict[n].data.data_ptr()
+        and execs[k].grad_dict[n].data.data_ptr()
+        == execs[max(LSTM_BUCKETS)].grad_dict[n].data.data_ptr()
+        for k in execs for n in mod._buckets[k]._param_names)
+
+    # a bucket's first use: its bind inside its first step, beyond the
+    # bucket's median step (the default bucket binds before fit, in setup)
+    by_bucket = {}
+    for key in LSTM_BUCKETS:
+        mine = [st for st in steps if st["bucket"] == key]
+        median = statistics.median(st["s"] for st in mine[1:])
+        by_bucket[key] = {
+            "steps": len(mine), "step_ms": median * 1e3,
+            "first_step_ms": mine[0]["s"] * 1e3,
+            "first_use_ms": None if key == max(LSTM_BUCKETS)
+            else (mine[0]["s"] - median) * 1e3}
+    steady = [st for key in LSTM_BUCKETS
+              for st in [x for x in steps if x["bucket"] == key][1:]]
+    steady_s = sum(st["s"] for st in steady)
+    traced = {"bucket_%d" % max(LSTM_BUCKETS): traced_lstm_steps(
+        mod, first[max(LSTM_BUCKETS)], LSTM_TRACED_STEPS)}
+    for key in LSTM_BUCKETS[:-1]:
+        traced["bucket_%d" % key] = traced_lstm_steps(mod, first[key], 1)
+    parts = lstm_step_parts(mod, first[max(LSTM_BUCKETS)], LSTM_TRACED_STEPS)
+    record = {"card": card, "cell": dict(LSTM_LM, batch=LSTM_BATCH,
+                                         buckets=LSTM_BUCKETS,
+                                         sgd=LSTM_SGD,
+                                         sentences=LSTM_SENTENCES),
+              "parity": parity, "rnn_op": rnn_op, "setup_s": setup_s,
+              "steps": len(steps), "by_bucket": by_bucket,
+              "padded_tokens_per_s": sum(st["padded"] for st in steady)
+              / steady_s,
+              "real_tokens_per_s": sum(st["real"] for st in steady)
+              / steady_s,
+              "epochs": [epochs[e] for e in sorted(epochs)],
+              "buckets_bound": sorted(mod._buckets),
+              "one_parameter_storage": shared,
+              "memory_held_bytes": held, "peak_memory_bytes": peak,
+              "memory_before_bytes": base, "host": host,
+              "traced": traced, "step_parts_ms": parts,
+              "launches": launches,
+              "phase_s": time.perf_counter() - t_phase}
+    _emit({"train_lstm_bucketing": record})
+    for key in LSTM_BUCKETS:
+        b = by_bucket[key]
+        first_use = "bound in setup (%.1f ms)" % (setup_s * 1e3) \
+            if b["first_use_ms"] is None else "%.1f ms" % b["first_use_ms"]
+        print("lstm bucket %d: %d steps, step %.2f ms (median after the "
+              "first), first use %s, traced: %.0f kernels a step, idle "
+              "%.3f" % (key, b["steps"], b["step_ms"], first_use,
+                        traced["bucket_%d" % key]["kernels"],
+                        traced["bucket_%d" % key]["idle_share"]),
+              flush=True)
+    print("lstm bucket %d step by part (ms, median of %d): %s"
+          % (max(LSTM_BUCKETS), LSTM_TRACED_STEPS,
+             {k: round(v, 2) for k, v in parts.items()}), flush=True)
+    print("lstm fit: %d steps, %.0f padded / %.0f real tokens/s, "
+          "perplexity by epoch %s (every label: %s), six buckets held %.3f "
+          "GB, peak %.3f GB (beyond %.3f GB held before), launches %s, "
+          "host %s, phase %.1f s"
+          % (len(steps), record["padded_tokens_per_s"],
+             record["real_tokens_per_s"],
+             [round(e["perplexity"], 1) for e in record["epochs"]],
+             [round(e["perplexity_all"], 1) for e in record["epochs"]],
+             held / 1e9, peak / 1e9, base / 1e9, launches, host,
+             record["phase_s"]), flush=True)
+    falling = all(b["perplexity_all"] < a["perplexity_all"] for a, b in
+                  zip(record["epochs"], record["epochs"][1:]))
+    if (record["buckets_bound"] != LSTM_BUCKETS or not shared
+            or not all(st["on_card"] for st in steps) or not falling
+            or len(record["epochs"]) != LSTM_EPOCHS
+            or not all(math.isfinite(v) for e in record["epochs"]
+                       for v in e.values())):
+        raise AssertionError("train_lstm_bucketing gave %s" % {
+            k: record[k] for k in ("buckets_bound", "one_parameter_storage",
+                                   "epochs")})
+    del mod, execs, it, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, record
+
+
+# ----------------------------------------------------------------------
 # open-loop load: tools/serve_bench.py's arrival engine, ported
 def arrival_schedule(n, rate_rps, seed):
     """``n`` cumulative Poisson arrival times at ``rate_rps``, seeded:
@@ -3167,6 +3520,10 @@ def main():
         train_resnet_bf16()
     paths["train_resnet_records"], _ = train_resnet_records(
         card, trains["train_resnet_bf16"])
+    # the bucketing LSTM LM runs none of the port's kernels either: its
+    # cells and the RNN op are PyTorch ops, as the JAX package leaves them
+    # to XLA
+    paths["train_lstm_bucketing"], _ = train_lstm_bucketing(card)
     records = times(latencies)
     gelu = rtc_times()
     # the paths that replay a captured graph: what one replay launched (a

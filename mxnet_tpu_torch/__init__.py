@@ -8,7 +8,9 @@ the card), trains the transformer LM and
 the zoo's convnets (ResNet, LeNet, the MLP) through
 ``mx.mod.Module.fit`` (on the card, the fused :class:`parallel.Trainer`
 step captured in one CUDA graph; elsewhere, or with
-``MXTPU_MODULE_FUSED=never``, the classic executor path), and runs the
+``MXTPU_MODULE_FUSED=never``, the classic executor path), trains the
+bucketing LSTM LM through ``mx.mod.BucketingModule`` (``mx.rnn`` cells,
+``BucketSentenceIter``, one parameter set for every bucket), and runs the
 imperative path: ``mx.nd`` NDArrays and the ops they reach, recorded by
 ``mx.autograd``, and ``mx.rtc`` kernels compiled from CUDA C at runtime.
 Training reads RecordIO files of JPEGs through ``mx.io.ImageRecordIter``
@@ -43,6 +45,7 @@ from . import model
 from . import callback
 from . import module
 from . import module as mod
+from . import rnn
 from . import parallel
 from . import obs
 from . import faults

@@ -245,10 +245,18 @@ def bind(sym, ctx, args, args_grad=None, grad_req="write", aux_states=None):
     return Executor(sym, ctx, args, args_grad, grad_req, aux_states)
 
 
-def simple_bind(sym, ctx=None, grad_req="write", type_dict=None, **kwargs):
+def simple_bind(sym, ctx=None, grad_req="write", type_dict=None,
+                shared_exec=None, **kwargs):
     """Infer every shape and dtype from the given input shapes and bind
     zero-filled arrays, gradients for each argument whose ``grad_req`` is
-    not ``null`` (reference ``executor.py:504-545``)."""
+    not ``null`` (reference ``executor.py:504-545``).
+
+    With ``shared_exec`` (a bucket binding against another bucket's
+    executor, as the reference's ``simple_bind`` does) every argument,
+    gradient and aux state whose name, shape and dtype match one of
+    ``shared_exec``'s is that very NDArray, so both executors read and
+    write one memory; only what differs (the inputs and gradients of
+    another length) is allocated."""
     ctx = ctx or current_context()
     arg_names = sym.list_arguments()
     aux_names = sym.list_auxiliary_states()
@@ -256,12 +264,27 @@ def simple_bind(sym, ctx=None, grad_req="write", type_dict=None, **kwargs):
     if arg_shapes is None:
         raise MXNetError("cannot infer shapes from %s" % kwargs)
     arg_types, _, aux_types = sym.infer_type(**(type_dict or {}))
-    args = {n: zeros(s, ctx, t)
-            for n, s, t in zip(arg_names, arg_shapes, arg_types)}
+
+    def alloc(shared, names, shapes, types, keep=lambda n: True):
+        out = {}
+        for n, s, t in zip(names, shapes, types):
+            if not keep(n):
+                continue
+            arr = shared.get(n)
+            if arr is None or arr.shape != tuple(s) or arr.dtype != t:
+                arr = zeros(s, ctx, t)
+            out[n] = arr
+        return out
+
+    if shared_exec is not None and shared_exec._ctx != ctx:
+        raise MXNetError("shared_exec is bound on %s, not on %s"
+                         % (shared_exec._ctx, ctx))
     reqs = _normalize_grad_req(grad_req, arg_names)
-    args_grad = {n: zeros(s, ctx, t)
-                 for n, s, t in zip(arg_names, arg_shapes, arg_types)
-                 if reqs[n] != "null"}
-    aux_states = {n: zeros(s, ctx, t)
-                  for n, s, t in zip(aux_names, aux_shapes, aux_types)}
+    args = alloc(shared_exec.arg_dict if shared_exec else {}, arg_names,
+                 arg_shapes, arg_types)
+    args_grad = alloc(shared_exec.grad_dict if shared_exec else {},
+                      arg_names, arg_shapes, arg_types,
+                      lambda n: reqs[n] != "null")
+    aux_states = alloc(shared_exec.aux_dict if shared_exec else {},
+                       aux_names, aux_shapes, aux_types)
     return Executor(sym, ctx, args, args_grad, grad_req, aux_states)

@@ -4,8 +4,8 @@ The reference surface (``python/mxnet/initializer.py:14-500``):
 :class:`InitDesc`, :class:`Initializer` with its default rules by name
 suffix (``*_weight`` by the subclass's rule, ``*_bias``/``*_beta`` zero,
 ``*_gamma`` one, moving statistics), the :class:`Load` and :class:`Mixed`
-combinators, and ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal``
-and ``Xavier``.  Values are drawn on the host from
+combinators, and ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal``,
+``Xavier`` and ``LSTMBias``.  Values are drawn on the host from
 :func:`mxnet_tpu_torch.random.np_rng`, as the JAX package draws them, so
 one seed gives the same weights in both packages, then written into the
 array on its device.
@@ -264,6 +264,24 @@ class Xavier(Initializer):
         else:
             raise ValueError("rnd_type must be uniform/gaussian, got %r"
                              % self.rnd_type)
+
+
+@register
+class LSTMBias(Initializer):
+    """Forget-gate bias init for an LSTM's fused ``i2h_bias`` (gates i, f,
+    c, o): ``forget_bias`` on the f quarter, 0 elsewhere (reference
+    ``initializer.py:429-449``).  ``LSTMCell`` puts it on its bias
+    variable's ``__init__`` attribute."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        num_hidden = int(arr.shape[0] / 4)
+        v = np.zeros(arr.shape, dtype=np.float32)
+        v[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = v
 
 
 def create(init):

@@ -1,5 +1,6 @@
 """Model zoo: Symbol builders (``mxnet_tpu/models``) for the networks
-the port runs: the MLP, LeNet, ResNet and the transformer LM.
+the port runs: the MLP, LeNet, ResNet, the transformer LM and the
+bucketing LSTM LM.
 
 Use :func:`get_symbol`::
 
@@ -7,22 +8,24 @@ Use :func:`get_symbol`::
                                layout="NHWC")
 """
 from . import lenet
+from . import lstm_lm
 from . import mlp
 from . import resnet
 from . import transformer
 
-__all__ = ["get_symbol", "lenet", "mlp", "resnet", "transformer"]
+__all__ = ["get_symbol", "lenet", "lstm_lm", "mlp", "resnet", "transformer"]
 
 _BUILDERS = {
     "mlp": mlp.get_symbol,
     "lenet": lenet.get_symbol,
+    "lstm_lm": lstm_lm.get_symbol,
     "transformer": transformer.get_symbol,
     "gpt": transformer.get_symbol,
 }
 
 # the JAX package's other networks, which the port builds in a later slice
 _LATER = ("alexnet", "vgg", "googlenet", "inception-bn", "inception-v3",
-          "inception-resnet-v2", "resnext", "lstm_lm")
+          "inception-resnet-v2", "resnext")
 
 
 def get_symbol(network, num_classes=1000, **kwargs):

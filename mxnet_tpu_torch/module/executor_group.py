@@ -3,7 +3,9 @@ for one context.
 
 The reference binds one executor per context and slices each batch
 across them; the port binds one, on one context, and raises for more
-(that needs the KVStore slice).  The group copies each batch into its
+(that needs the KVStore slice).  A group bound with ``shared_group``
+(a bucket of ``BucketingModule``) shares that group's parameter,
+gradient and aux arrays.  The group copies each batch into its
 executor's input arrays, runs forward and backward, and exposes the
 parameter, gradient and output arrays to the Module.
 """
@@ -38,7 +40,8 @@ def _load(sources, targets):
 class DataParallelExecutorGroup(object):
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 logger=logging, fixed_param_names=None, grad_req="write"):
+                 shared_group=None, logger=logging, fixed_param_names=None,
+                 grad_req="write"):
         if len(contexts) != 1:
             raise MXNetError("training on %d contexts: %s"
                              % (len(contexts), KVSTORE_SLICE))
@@ -51,6 +54,9 @@ class DataParallelExecutorGroup(object):
         self.inputs_need_grad = inputs_need_grad
         self.logger = logger
         self.fixed_param_names = fixed_param_names or []
+        # another bucket's group: its executor lends every array of the
+        # same name, shape and dtype (executor.simple_bind)
+        self.shared_group = shared_group
         if not for_training:
             grad_req = "null"
         data_names = [_name(x) for x in data_shapes]
@@ -81,9 +87,11 @@ class DataParallelExecutorGroup(object):
                   for x in list(data_shapes) + list(label_shapes or [])}
         types = {_name(x): getattr(x, "dtype", None)
                  for x in list(data_shapes) + list(label_shapes or [])}
+        shared = self.shared_group
         exe = self.symbol.simple_bind(
             ctx=self.contexts[0], grad_req=self.grad_req,
             type_dict={k: v for k, v in types.items() if v is not None},
+            shared_exec=shared.execs[0] if shared is not None else None,
             **shapes)
         self.execs = [exe]
         self.data_arrays = [exe.arg_dict[_name(x)] for x in data_shapes]

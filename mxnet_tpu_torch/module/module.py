@@ -258,9 +258,12 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
-        if shared_module is not None:
-            raise MXNetError("shared_module is not ported yet (it comes with "
-                             "BucketingModule)")
+        if shared_module is not None and not (
+                isinstance(shared_module, Module) and shared_module.binded
+                and shared_module.params_initialized
+                and shared_module._exec_group is not None):
+            raise MXNetError("shared_module must be a Module bound on the "
+                             "classic path with its parameters initialized")
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.binded = True
@@ -274,8 +277,10 @@ class Module(BaseModule):
         else:
             self._label_shapes = None
 
+        # a shared bind exchanges executors: the classic path only
         fused_ok = (for_training and not inputs_need_grad and
-                    grad_req == "write" and not self._fixed_param_names and
+                    shared_module is None and grad_req == "write" and
+                    not self._fixed_param_names and
                     self._fused_mode != "never")
         if fused_ok and (self._fused_mode == "always" or (
                 len(self._context) == 1 and
@@ -288,8 +293,16 @@ class Module(BaseModule):
             self._fused = True
             self._build_param_mirrors()
             return
-        self._bind_exec_group(grad_req)
-        if self.params_initialized:
+        self._bind_exec_group(grad_req, shared_module)
+        if shared_module is not None:
+            # one parameter set: the executors share the device arrays,
+            # and the host copies are the shared module's own dicts
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self.params_initialized = True
+            if shared_module.optimizer_initialized:
+                self.borrow_optimizer(shared_module)
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
         else:
             host = Context("cpu")
@@ -300,11 +313,13 @@ class Module(BaseModule):
                 n: zeros(x[0].shape, host, x[0].dtype) for n, x in
                 zip(self._aux_names, self._exec_group.aux_arrays)}
 
-    def _bind_exec_group(self, grad_req="write"):
+    def _bind_exec_group(self, grad_req="write", shared_module=None):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, self.for_training,
-            self.inputs_need_grad, logger=self.logger,
+            self.inputs_need_grad,
+            shared_group=shared_module._exec_group if shared_module else None,
+            logger=self.logger,
             fixed_param_names=self._fixed_param_names, grad_req=grad_req)
 
     def _build_param_mirrors(self):
@@ -415,6 +430,15 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             preload, self._preload_opt_states = self._preload_opt_states, None
             self.load_optimizer_states(preload)
+
+    def borrow_optimizer(self, shared_module):
+        """Share another module's optimizer, store and updater, so their
+        state (momentum) is one state (reference ``module.py:531``)."""
+        assert shared_module.optimizer_initialized
+        for attr in ("_optimizer", "_kvstore", "_update_on_kvstore",
+                     "_updater"):
+            setattr(self, attr, getattr(shared_module, attr))
+        self.optimizer_initialized = True
 
     # ------------------------------------------------------------------
     def forward(self, data_batch, is_train=None):

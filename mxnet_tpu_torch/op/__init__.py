@@ -7,3 +7,4 @@ from . import tensor  # noqa: F401
 from . import init_ops  # noqa: F401
 from . import nn  # noqa: F401
 from . import attention  # noqa: F401
+from . import rnn_op  # noqa: F401

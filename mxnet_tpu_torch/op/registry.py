@@ -122,9 +122,17 @@ class Op:
     infer_shape: Optional[Callable] = None  # (params, in_shapes) -> (in,out,aux)
     infer_dtype: Optional[Callable] = None
     uses_rng: bool = False  # the body draws from ``OpContext.rng``
+    # the body draws in an inference forward too; None inherits
+    # ``uses_rng`` (the RNN op says False: its dropout draws only in
+    # training)
+    rng_in_eval: Optional[bool] = None
     # the body's result depends on ``OpContext.is_train`` (Dropout)
     mode_dependent: bool = False
     hint: str = ""  # auto-naming hint, defaults to lowercased name
+
+    def __post_init__(self):
+        if self.rng_in_eval is None:
+            self.rng_in_eval = self.uses_rng
 
     def list_inputs(self, params) -> List[str]:
         names = self.input_names(params) if callable(self.input_names) \

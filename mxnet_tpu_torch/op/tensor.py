@@ -147,6 +147,27 @@ def _concat(p, c, *xs):
 alias("concat", "Concat")
 
 
+@register("SliceChannel", params_spec=(Param("num_outputs", int,
+                                             required=True),
+                                       Param("axis", int, 1),
+                                       Param("squeeze_axis", bool, False)),
+          num_outputs=lambda p: p["num_outputs"], hint="slicechannel")
+def _slice_channel(p, c, a):
+    """``num_outputs`` equal views along ``axis`` (``jnp.split``: the
+    axis must divide evenly); ``squeeze_axis`` drops the axis from each."""
+    n, ax = p["num_outputs"], p["axis"] % a.ndim
+    if a.shape[ax] % n:
+        raise MXNetError("SliceChannel: axis %d of length %d does not split "
+                         "into %d equal parts" % (ax, a.shape[ax], n))
+    parts = a.split(a.shape[ax] // n, dim=ax)
+    if p["squeeze_axis"]:
+        parts = [x.squeeze(ax) for x in parts]
+    return tuple(parts)
+
+
+alias("split", "SliceChannel")
+
+
 @register("Cast", params_spec=(Param("dtype", "dtype", required=True),),
           hint="cast")
 def _cast(p, c, a):
@@ -287,6 +308,13 @@ def one_hot(indices: torch.Tensor, depth: int, dtype) -> torch.Tensor:
 def _one_hot(p, c, indices):
     oh = one_hot(indices, p["depth"], p["dtype"])
     return oh * (p["on_value"] - p["off_value"]) + p["off_value"]
+
+
+@register("where", input_names=("condition", "x", "y"))
+def _where(p, c, cond, x, y):
+    """``x`` where ``condition`` is nonzero, else ``y``; the condition
+    gets no gradient, as through the JAX package's cast to bool."""
+    return torch.where(cond.detach().to(torch.bool), x, y)
 
 
 @register("zeros_like")

@@ -186,7 +186,7 @@ class CompiledForward:
         self.param_names = [n for n in self.prog.arg_names if n not in inputs]
         self.aux_names = list(self.prog.aux_names)
         # a graph of a forward that draws registers the generator
-        self.draws = any(getattr(n.op, "uses_rng", False)
+        self.draws = any(n.op.uses_rng and n.op.rng_in_eval
                          for n in self.prog.nodes if not n.is_variable)
         self._lock = _tsan.lock("serving.CompiledForward._lock")
         self._capture_lock = threading.Lock()

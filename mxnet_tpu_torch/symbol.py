@@ -20,7 +20,7 @@ from . import op as _op  # noqa: F401  (populates the registry)
 from .base import MXNetError, _dtype, dtype_name
 from .op import registry as _reg
 
-__all__ = ["Symbol", "Variable", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -168,9 +168,10 @@ class Symbol:
         return bind(self, ctx, args, args_grad, grad_req, aux_states)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    **kwargs):
+                    shared_exec=None, **kwargs):
         from .executor import simple_bind
-        return simple_bind(self, ctx, grad_req, type_dict, **kwargs)
+        return simple_bind(self, ctx, grad_req, type_dict,
+                           shared_exec=shared_exec, **kwargs)
 
     def get_internals(self) -> "Symbol":
         outs = []
@@ -291,6 +292,15 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
     return Symbol([(node, 0)])
 
 
+def Group(symbols) -> Symbol:
+    """One symbol whose outputs are those of ``symbols``, in order (an
+    RNN's per-step outputs and final states, for instance)."""
+    outs = []
+    for s in symbols:
+        outs.extend(s._outputs)
+    return Symbol(outs)
+
+
 def load(fname) -> Symbol:
     with open(fname) as f:
         return load_json(f.read())
@@ -339,6 +349,10 @@ def _create(op_name, sym_args, kwargs) -> Symbol:
     sym_kwargs = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
     for k in sym_kwargs:
         kwargs.pop(k)
+    # a variadic op (Concat) counts its inputs, as the reference does
+    if "num_args" in {p.name for p in op.params_spec} \
+            and "num_args" not in kwargs:
+        kwargs["num_args"] = len(sym_args) + len(sym_kwargs)
     params = op.parse_params(kwargs)
     name = _name_mgr.current().get(name, op.hint)
     attrs = attribute.current().get(attr)

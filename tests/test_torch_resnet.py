@@ -72,7 +72,7 @@ def test_resnet50_nhwc_weights_are_hwio():
 
 
 @pytest.mark.parametrize("network", ["alexnet", "vgg-16", "inception-bn",
-                                     "resnext-50", "lstm_lm"])
+                                     "resnext-50"])
 def test_unported_zoo_networks_raise(network):
     with pytest.raises(ValueError, match="later slice"):
         mt.models.get_symbol(network)
