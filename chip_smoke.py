@@ -109,7 +109,30 @@ fails:
    card, the trained loss falling by epoch, none of the port's kernels;
    step ms a bucket, tokens/s, each bucket's first use, the memory the six
    buckets hold, the idle share and kernels of traced steps;
-14. times: each kernel, its plain version and the PyTorch library call
+14. train_resume: the fused bfloat16 GPT-2 cell trained by ``Module.fit``
+   with a ``CheckpointManager`` checkpoint every epoch, in three processes
+   of its own: uninterrupted; killed inside its second save
+   (``MXTPU_FAULTS="crash@ckpt_write:save=2"``: exit 137, a ``.tmp``
+   left); restarted with ``resume=True``, which sweeps the ``.tmp``, and
+   whose parameters must be bitwise the uninterrupted run's after every
+   step and at the end; save ms, bytes a checkpoint, CRC ms, the scan's
+   ms and the restart's time to its first step;
+15. train_reshape: the same cell, two steps at batch 4, ``Module.reshape``
+   to batch 8, two steps, back to 4, one step: each step after a reshape
+   bitwise the step of a fresh module bound at that shape with the same
+   parameters and optimizer state, one CUDA graph captured a shape; the
+   capture ms and the memory the second graph holds;
+16. train_monitor: ``Monitor(1, pattern=".*")`` on the classic float32
+   cell for two steps, each bitwise (outputs and every gradient) an
+   unmonitored module's step; the statistics of a step at GPT-2's widths
+   against the port's CPU run; rows a step, step ms with and without the
+   tap;
+17. module_family: examples/module/python_loss.py (``SequentialModule`` +
+   ``PythonLossModule``, the numpy gradient back on the card) and
+   examples/module/mnist_mlp.py's MLP through ``FeedForward.create`` (the
+   fused path), at the examples' sizes, each against the port's CPU run,
+   train accuracy rising past the examples' bars;
+18. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
@@ -262,6 +285,24 @@ LSTM_SENTENCES, LSTM_EPOCHS, LSTM_TRACED_STEPS = 2000, 2, 3
 LSTM_CARD_TOL = 1e-5
 # the RNN op alone at the cell's widths: T 60, N 32, I = H = 200, 2 layers
 RNN_OP_SHAPE = dict(T=60, N=32, I=200, H=200, layers=2)
+# train_resume: the fused bfloat16 cell (gpt2_train_cell), a checkpoint
+# every epoch kept two deep, the run killed inside its second save (the
+# params write of epoch 2), then restarted with resume=True
+RESUME_KEEP, RESUME_FAULT = 2, "crash@ckpt_write:save=2"
+RESUME_CHILD_S = 600
+# train_reshape: batch sizes in turn, RESHAPE_STEPS[i] steps at each
+RESHAPE_BATCHES, RESHAPE_STEPS = (4, 8, 4), (2, 2, 1)
+# train_monitor: monitored steps; the statistics of the card against the
+# port's CPU run (GPT-2 small's widths, CPU_LAYERS deep, TF32 off), each
+# within MONITOR_TOL of its own magnitude
+MONITOR_STEPS, MONITOR_TOL = 2, 1e-4
+# module_family: examples/module/python_loss.py (2,000 x 64 prototypes
+# of 10 classes, batch 100, 8 epochs, SGD 0.2 momentum 0.9, Xavier) and
+# examples/module/mnist_mlp.py's MLP (784-128-64-10 on 2,000 synthetic
+# digits, batch 100, 5 epochs, SGD 0.1 momentum 0.9, Xavier) through
+# FeedForward.create; the card against the port's CPU run by relative
+# norm of each parameter
+FAMILY_TOL = 1e-5
 # serve_server: the JAX package's documented serving cell
 # (docs/how_to/serving.md:33-45, tools/serve_bench.py:131-142): buckets,
 # the request rows mix (serve_bench's default), ResNet-50's image side,
@@ -3177,6 +3218,648 @@ def train_lstm_bucketing(card):
 
 
 # ----------------------------------------------------------------------
+# the rest of fit: checkpoints with resume, reshape, the monitor; the
+# module family
+def _param_fingerprint(params):
+    """A bitwise fingerprint of device tensors, by name: the sum of each
+    tensor's 32-bit words and their sum weighted by position (int64, in
+    one host read)."""
+    names = sorted(params)
+    sums = []
+    for n in names:
+        w = params[n].detach().contiguous().view(-1).view(torch.int32)
+        w = w.to(torch.int64)
+        pos = torch.arange(1, w.numel() + 1, device=w.device,
+                           dtype=torch.int64)
+        sums.append(torch.stack([w.sum(), (w * pos).sum()]))
+    return dict(zip(names, torch.stack(sums).tolist()))
+
+
+def _params_digest(params):
+    """sha256 of every tensor's bytes, in name order, on the host."""
+    import hashlib
+    h = hashlib.sha256()
+    for n in sorted(params):
+        h.update(n.encode())
+        h.update(params[n].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _TimedManager(mt.resilience.CheckpointManager):
+    """A CheckpointManager that times its saves and scans."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.save_ms, self.latest_ms, self.bytes, self.crc_ms = \
+            [], [], [], []
+
+    def save(self, module, epoch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck = super().save(module, epoch, **kw)
+        self.save_ms.append((time.perf_counter() - t0) * 1e3)
+        files = ck.manifest["files"]
+        self.bytes.append(sum(f["size"] for f in files.values()))
+        t0 = time.perf_counter()
+        for name in files:
+            mt.resilience._crc32_file(os.path.join(
+                os.path.dirname(os.path.abspath(self.prefix)), name))
+        self.crc_ms.append((time.perf_counter() - t0) * 1e3)
+        return ck
+
+    def latest(self):
+        t0 = time.perf_counter()
+        ck = super().latest()
+        self.latest_ms.append((time.perf_counter() - t0) * 1e3)
+        return ck
+
+
+def resume_child(prefix, mode):
+    """One run of train_resume, in a process of its own: the fused
+    bfloat16 cell trained by ``Module.fit`` for TRAIN_EPOCHS epochs with a
+    checkpoint every epoch (``resume=True`` when ``mode`` is
+    ``resumed``).  Prints a ``RESUME_STEP`` line with the parameters'
+    fingerprint after each step and a ``RESUME_DONE`` line at the end."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    X, Y = cyclic_tokens(BATCH * TRAIN_BATCHES,
+                         np.random.default_rng(SEED + 3), np.int32)
+    data = mt.io.NDArrayIter(X, Y, batch_size=BATCH)
+    mod = mt.mod.Module(mt.models.transformer.get_symbol(**GPT2_SMALL),
+                        context=mt.gpu(), compute_dtype="bfloat16")
+    mgr = _TimedManager(prefix, keep=RESUME_KEEP)
+    mt.random.seed(SEED)
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        tr = mod._trainer
+        _emit({"RESUME_STEP": tr.num_update, "wall": time.time(),
+               "fingerprint": _param_fingerprint(tr.params)})
+
+    reset_launch_counts()
+    mod.fit(data, num_epoch=TRAIN_EPOCHS, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mt.init.Xavier(**TRAIN_INIT),
+            eval_metric=mt.metric.Perplexity(None), checkpoint=mgr,
+            checkpoint_period=1, resume=mode == "resumed",
+            batch_end_callback=on_batch)
+    tr = mod._trainer
+    _emit({"RESUME_DONE": mode, "launches": launch_counts(),
+           "digest": _params_digest(tr.params),
+           "graph_captures": tr.graph_captures,
+           "graph_replays": tr.graph_replays, "save_ms": mgr.save_ms,
+           "bytes": mgr.bytes, "crc_ms": mgr.crc_ms,
+           "latest_ms": mgr.latest_ms})
+
+
+def _run_resume_child(prefix, mode, fault=None):
+    """A resume_child run: (exit code, its steps by update count, its
+    RESUME_DONE record or None, seconds from start to its first step,
+    the output's tail)."""
+    env = dict(os.environ)
+    env.pop("MXTPU_FAULTS", None)
+    if fault:
+        env["MXTPU_FAULTS"] = fault
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "resume_child", prefix,
+         mode], env=env, capture_output=True, text=True,
+        timeout=RESUME_CHILD_S)
+    steps, done = {}, None
+    for line in res.stdout.splitlines():
+        if not line.startswith("{"):
+            continue
+        rec = json.loads(line)
+        if "RESUME_STEP" in rec:
+            steps[rec["RESUME_STEP"]] = rec
+        elif "RESUME_DONE" in rec:
+            done = rec
+    first = min(steps.values(), key=lambda r: r["RESUME_STEP"])["wall"] \
+        if steps else None
+    tail = (res.stdout[-2000:], res.stderr[-4000:])
+    return res.returncode, steps, done, \
+        None if first is None else first - t0, tail
+
+
+def train_resume(card):
+    """Crash-consistent checkpoints with resume on the fused bfloat16
+    cell: an uninterrupted run, a run killed inside its second save
+    (RESUME_FAULT: exit 137, a ``.tmp`` left), and that run restarted
+    with ``resume=True``, each a process of its own.  Asserts the kill,
+    the ``.tmp`` swept by the restart, the restarted run's parameters
+    bitwise the uninterrupted run's after every step (naming the first
+    that differs) and at the end, and K1-bf16 and B2-bf16 launched on the
+    restarted run.  Prints save ms, bytes a checkpoint, CRC ms, the
+    ``latest()`` scan ms and the time from the restart to its first
+    step.  Returns (the restarted run's launches, record)."""
+    import shutil
+    _phase("train_resume")
+    t_phase = time.perf_counter()
+    symbol = mt.models.transformer.get_symbol(**GPT2_SMALL)
+    shapes, _, _ = symbol.infer_shape(
+        data=(BATCH, GPT2_SMALL["seq_len"]),
+        softmax_label=(BATCH, GPT2_SMALL["seq_len"]))
+    n_params = sum(int(np.prod(shape)) for name, shape in
+                   zip(symbol.list_arguments(), shapes)
+                   if name not in ("data", "softmax_label"))
+    # params, Adam's m and v, float32; RESUME_KEEP saves and one more
+    # before the prune, and a torn save's .tmp
+    need = 12 * n_params * (RESUME_KEEP + 2)
+    tmp = tempfile.mkdtemp(prefix="mxtpu_resume_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        _emit({"train_resume_disk": tmp, "free_bytes": free,
+               "need_bytes": need, "params": n_params})
+        if free < need:
+            raise AssertionError("train_resume needs %d bytes free in %s, "
+                                 "has %d" % (need, tmp, free))
+        runs = {}
+        full_dir = os.path.join(tmp, "full")
+        os.makedirs(full_dir)
+        runs["full"] = _run_resume_child(os.path.join(full_dir, "ckpt"),
+                                         "full")
+        shutil.rmtree(full_dir)
+        prefix = os.path.join(tmp, "run", "ckpt")
+        os.makedirs(os.path.dirname(prefix))
+        runs["killed"] = _run_resume_child(prefix, "killed", RESUME_FAULT)
+        leaked = sorted(n for n in os.listdir(os.path.dirname(prefix))
+                        if n.endswith(".tmp"))
+        runs["resumed"] = _run_resume_child(prefix, "resumed")
+        left = sorted(n for n in os.listdir(os.path.dirname(prefix))
+                      if n.endswith(".tmp"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for mode, want_rc in (("full", 0), ("killed", 137), ("resumed", 0)):
+        rc, _, done, _, tail = runs[mode]
+        if rc != want_rc or (done is None) != (mode == "killed"):
+            raise AssertionError("train_resume's %s run exited %d (want "
+                                 "%d): %s" % (mode, rc, want_rc, tail))
+    full, killed, resumed = (runs[m][1] for m in ("full", "killed",
+                                                   "resumed"))
+    n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
+    if sorted(full) != list(range(1, n_steps + 1)):
+        raise AssertionError("the uninterrupted run took steps %s"
+                             % sorted(full))
+    first_diff = None
+    for step in sorted(set(killed) | set(resumed)):
+        got = (resumed.get(step) or killed[step])["fingerprint"]
+        if got != full[step]["fingerprint"]:
+            first_diff = step
+            break
+    resumed_from = min(resumed)
+    done_full, done = runs["full"][2], runs["resumed"][2]
+    counts = done["launches"]
+    record = {
+        "train_resume": "gpt2-small fused bfloat16", "params": n_params,
+        "fault": RESUME_FAULT, "killed_steps": sorted(killed),
+        "resumed_steps": sorted(resumed), "leaked_tmp": leaked,
+        "tmp_after_restart": left, "first_differing_step": first_diff,
+        "final_digest_equal": done["digest"] == done_full["digest"],
+        "save_ms": done_full["save_ms"], "bytes_per_checkpoint":
+        done_full["bytes"], "crc_ms": done_full["crc_ms"],
+        "latest_ms": done["latest_ms"],
+        "restart_to_first_step_s": runs["resumed"][3],
+        "fresh_start_to_first_step_s": runs["full"][3],
+        "graph_captures": done["graph_captures"],
+        "graph_replays": done["graph_replays"], "launches": counts,
+        "launches_uninterrupted": done_full["launches"],
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    _emit(record)
+    print("train_resume: killed after step %d (exit 137, %s left), resumed "
+          "from step %d, first differing step %s, final digest equal %s; "
+          "save %s ms, %s bytes, CRC %s ms, latest() %s ms, restart to "
+          "first step %.1f s" % (max(killed), leaked, resumed_from - 1,
+                                 first_diff, record["final_digest_equal"],
+                                 [round(x) for x in record["save_ms"]],
+                                 record["bytes_per_checkpoint"][0],
+                                 [round(x) for x in record["crc_ms"]],
+                                 [round(x, 1) for x in record["latest_ms"]],
+                                 record["restart_to_first_step_s"]),
+          flush=True)
+    k1, b2 = K1_SOURCES[torch.bfloat16], B2_SOURCES[torch.bfloat16]
+    layers = GPT2_SMALL["num_layers"]
+    if not leaked or left or resumed_from != TRAIN_BATCHES + 1 \
+            or sorted(resumed) != list(range(resumed_from, n_steps + 1)) \
+            or first_diff is not None or not record["final_digest_equal"]:
+        raise AssertionError("train_resume gave %s" % record)
+    # the restarted run: its eager first step and the capture of its
+    # second, as the uninterrupted run's
+    expect_launches("train_resume", counts, **{k1: 2 * layers,
+                                               b2: 2 * layers})
+    return counts, record
+
+
+def _fused_step(mod, x, y):
+    """One fused step of the module on the card batch ``(x, y)``."""
+    mod.forward(mt.io.DataBatch([mt.nd.array(x)], [mt.nd.array(y)]),
+                is_train=True)
+    mod.update()
+
+
+def _fresh_bf16_module(batch, arg, blob, rescale):
+    """The fused bfloat16 GPT-2 module bound at ``batch``, with the given
+    parameters and optimizer-state blob."""
+    mod = mt.mod.Module(mt.models.transformer.get_symbol(**GPT2_SMALL),
+                        context=mt.gpu(), compute_dtype="bfloat16")
+    t = GPT2_SMALL["seq_len"]
+    mod.bind([("data", (batch, t))], [("softmax_label", (batch, t))])
+    mod.init_params(arg_params=arg)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": TRAIN_LR,
+                                         "rescale_grad": rescale})
+    mod._trainer.set_opt_states(blob)
+    return mod
+
+
+def train_reshape(card):
+    """``Module.reshape`` on the fused bfloat16 cell: RESHAPE_STEPS steps
+    at each of RESHAPE_BATCHES in turn.  Each step after a reshape must be
+    bitwise the step of a fresh module bound at that shape with the same
+    parameters and optimizer state; one capture a shape (the return to a
+    shape replays its graph).  Prints the captures, the capture ms and
+    the memory the second shape's graph holds.  Returns (launches,
+    record)."""
+    _phase("train_reshape")
+    t_phase = time.perf_counter()
+    t = GPT2_SMALL["seq_len"]
+    mod, _, X, Y, _ = gpt2_train_cell(True, "bfloat16")
+    tr = mod._trainer
+    rescale = 1.0 / BATCH
+    start = {}          # the state each shape's first step starts from
+    snaps, steps = [], []
+    reset_launch_counts()
+    row = 0
+    for batch, n in zip(RESHAPE_BATCHES, RESHAPE_STEPS):
+        if steps:
+            arg, _ = mod.get_params()
+            start[len(steps)] = (batch, {k: v.copy() for k, v in
+                                         arg.items()}, tr.get_opt_states())
+            mod.reshape([("data", (batch, t))],
+                        [("softmax_label", (batch, t))])
+        for _ in range(n):
+            rows = np.arange(row, row + batch) % len(X)
+            x, y = X[rows], Y[rows]
+            row += batch
+            captures = tr.graph_captures
+            torch.cuda.synchronize()
+            alloc, reserved = (torch.cuda.memory_allocated(),
+                               torch.cuda.memory_reserved())
+            t0 = time.perf_counter()
+            _fused_step(mod, x, y)
+            torch.cuda.synchronize()
+            steps.append({"batch": batch, "x": x, "y": y,
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "captured": tr.graph_captures > captures,
+                          "allocated_delta": torch.cuda.memory_allocated()
+                          - alloc, "reserved_delta":
+                          torch.cuda.memory_reserved() - reserved})
+            snaps.append({n_: v.clone() for n_, v in tr.params.items()})
+    counts = launch_counts()
+    captures, replays = tr.graph_captures, tr.graph_replays
+    del mod, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fresh modules, each from the state its shape's first step
+    # started from (their launches are not the path's)
+    equal, fresh_steps = [], 0
+    for i, (batch, arg, blob) in sorted(start.items()):
+        fresh = _fresh_bf16_module(batch, arg, blob, rescale)
+        j = i
+        while j < len(steps) and steps[j]["batch"] == batch and \
+                (j == i or j not in start):
+            _fused_step(fresh, steps[j]["x"], steps[j]["y"])
+            same = all(torch.equal(fresh._trainer.params[n], v)
+                       for n, v in snaps[j].items())
+            equal.append({"step": j + 1, "batch": batch, "bitwise": same})
+            fresh_steps += 1
+            j += 1
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    second = next((s for s in steps if s["captured"] and s["batch"] !=
+                   RESHAPE_BATCHES[0]), {"allocated_delta": 0,
+                                         "reserved_delta": 0})
+    record = {"train_reshape": "gpt2-small fused bfloat16",
+              "batches": RESHAPE_BATCHES, "steps_each": RESHAPE_STEPS,
+              "graph_captures": captures, "graph_replays": replays,
+              "step_ms": [s["ms"] for s in steps],
+              "captured": [s["captured"] for s in steps],
+              "capture_ms": [s["ms"] for s in steps if s["captured"]],
+              "second_graph_allocated_bytes": second["allocated_delta"],
+              "second_graph_reserved_bytes": second["reserved_delta"],
+              "post_reshape_vs_fresh": equal, "launches": counts,
+              "phase_s": time.perf_counter() - t_phase, "card": card}
+    _emit(record)
+    print("train_reshape: batches %s, captures %d, capture ms %s, second "
+          "graph %.3f GB allocated / %.3f GB reserved, post-reshape steps "
+          "bitwise %s" % (
+              [s["batch"] for s in steps], captures,
+              [round(x, 1) for x in record["capture_ms"]],
+              second["allocated_delta"] / 1e9,
+              second["reserved_delta"] / 1e9,
+              [e["bitwise"] for e in equal]), flush=True)
+    shapes = len(set(RESHAPE_BATCHES))
+    if captures != shapes or not equal or not all(
+            e["bitwise"] for e in equal) or \
+            fresh_steps != sum(RESHAPE_STEPS[1:]):
+        raise AssertionError("train_reshape gave %s" % {
+            k: record[k] for k in ("graph_captures", "captured",
+                                   "post_reshape_vs_fresh")})
+    k1, b2 = K1_SOURCES[torch.bfloat16], B2_SOURCES[torch.bfloat16]
+    layers = GPT2_SMALL["num_layers"]
+    # a new shape's eager step and capture; a shape seen before replays
+    expect_launches("train_reshape", counts, **{k1: 2 * shapes * layers,
+                                                b2: 2 * shapes * layers})
+    return counts, record
+
+
+class _StatMonitor(mt.monitor.Monitor):
+    """A Monitor that keeps its rows, each statistic as a float."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.rows = []
+
+    @staticmethod
+    def _render(stat):
+        return float(stat.asnumpy().reshape(-1)[0])
+
+    def toc(self):
+        rows = super().toc()
+        self.rows.append(rows)
+        return rows
+
+
+def monitor_vs_cpu():
+    """The monitor's statistics of one float32 training forward of GPT-2
+    small's widths (CPU_LAYERS deep, random weights) on the card against
+    the port's CPU run of the same step: the same rows, each statistic
+    within MONITOR_TOL of its magnitude; returns the largest error."""
+    t = GPT2_SMALL["seq_len"]
+    symbol = mt.models.transformer.get_symbol(
+        **dict(GPT2_SMALL, num_layers=CPU_LAYERS))
+    shapes, _, _ = symbol.infer_shape(data=(BATCH, t),
+                                      softmax_label=(BATCH, t))
+    params = _random_params(symbol, shapes, np.random.default_rng(SEED + 5))
+    x, y = cyclic_tokens(BATCH, np.random.default_rng(SEED + 6))
+    req = {n: "write" if n in params else "null"
+           for n in symbol.list_arguments()}
+    rows = []
+    for ctx in (mt.gpu(), mt.cpu()):
+        exe = symbol.simple_bind(ctx, grad_req=req, data=(BATCH, t),
+                                 softmax_label=(BATCH, t))
+        exe.copy_params_from({n: mt.nd.NDArray(v) for n, v in params.items()})
+        mon = _StatMonitor(1, pattern=".*")
+        mon.install(exe)
+        mon.tic()
+        exe.forward(is_train=True, data=x, softmax_label=y)
+        exe.backward()
+        rows.append(mon.toc())
+        del exe
+    card_rows, cpu_rows = rows
+    if [r[1] for r in card_rows] != [r[1] for r in cpu_rows]:
+        raise AssertionError("the monitor's rows differ between the card "
+                             "and the CPU")
+    err = {name: abs(a - b) / max(abs(b), 1e-30)
+           for (_, name, a), (_, _, b) in zip(card_rows, cpu_rows)}
+    worst = max(err, key=err.get)
+    _emit({"monitor_vs_cpu": "gpt2-small widths", "layers": CPU_LAYERS,
+           "rows": len(card_rows), "stat_rel_err_max": err[worst],
+           "worst": worst, "tolerance": MONITOR_TOL})
+    if not all(math.isfinite(e) and e <= MONITOR_TOL for e in err.values()):
+        raise AssertionError("monitor statistics on the card and the CPU "
+                             "differ: %s %g" % (worst, err[worst]))
+    return err[worst], len(card_rows)
+
+
+def train_monitor(card):
+    """``Monitor(1, pattern=".*")`` on the classic float32 cell: MONITOR_STEPS
+    steps of a monitored module and of an unmonitored one from the same
+    weights, their outputs and every gradient bitwise equal after each
+    step; then the statistics against the CPU (``monitor_vs_cpu``).
+    Prints rows a step and the step ms with and without the tap.
+    Returns (launches, record)."""
+    _phase("train_monitor")
+    t_phase = time.perf_counter()
+    watched, _, X, Y, _ = gpt2_train_cell(False)
+    plain, _, _, _, _ = gpt2_train_cell(False)
+    mon = _StatMonitor(1, pattern=".*")
+    watched.install_monitor(mon)
+    counts = {k: 0 for k in launch_counts()}
+    steps = []
+    for i in range(MONITOR_STEPS):
+        batch = mt.io.DataBatch([mt.nd.array(X[i * BATCH:(i + 1) * BATCH])],
+                                [mt.nd.array(Y[i * BATCH:(i + 1) * BATCH])])
+        rec, outs = {}, []
+        for name, mod in (("monitored", watched), ("plain", plain)):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mod is watched:
+                mon.tic()
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+            rec[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+            if mod is watched:
+                for k, v in launch_counts().items():
+                    counts[k] += v
+                t0 = time.perf_counter()
+                mon.toc()
+                rec["toc_ms"] = (time.perf_counter() - t0) * 1e3
+            exe = mod._exec_group.execs[0]
+            outs.append([o.data for o in mod.get_outputs()] +
+                        [exe.grad_dict[n].data for n in sorted(
+                            exe.grad_dict)])
+        rec["bitwise"] = all(torch.equal(a, b) for a, b in zip(*outs))
+        rec["rows"] = len(mon.rows[-1])
+        steps.append(rec)
+        del outs
+    err, cpu_rows = monitor_vs_cpu()
+    record = {"train_monitor": "gpt2-small classic float32",
+              "steps": steps, "rows_per_step": [s["rows"] for s in steps],
+              "stat_rel_err_max_vs_cpu": err, "cpu_rows": cpu_rows,
+              "launches": counts, "phase_s": time.perf_counter() - t_phase,
+              "card": card}
+    _emit(record)
+    print("train_monitor: rows a step %s, step ms monitored %s / plain %s, "
+          "toc ms %s, bitwise %s, statistics vs CPU %.3g" % (
+              record["rows_per_step"],
+              [round(s["monitored_ms"], 1) for s in steps],
+              [round(s["plain_ms"], 1) for s in steps],
+              [round(s["toc_ms"], 1) for s in steps],
+              [s["bitwise"] for s in steps], err), flush=True)
+    names = {name for _, name, _ in mon.rows[-1]}
+    if not all(s["bitwise"] for s in steps) or not all(
+            s["rows"] for s in steps) or "softmax_output" not in names:
+        raise AssertionError("train_monitor gave %s" % steps)
+    layers = GPT2_SMALL["num_layers"]
+    expect_launches("train_monitor", counts, **{
+        K1_SOURCES[torch.float32]: MONITOR_STEPS * layers,
+        B2_SOURCES[torch.float32]: MONITOR_STEPS * layers})
+    del watched, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, record
+
+
+def _hinge_grad(scores, labels):
+    """examples/module/python_loss.py's multi-class hinge gradient, in
+    numpy."""
+    s = scores.asnumpy()
+    y = labels.asnumpy().astype(int)
+    n = s.shape[0]
+    margin = 1.0 + s - s[np.arange(n), y][:, None]
+    margin[np.arange(n), y] = 0.0
+    pred = margin.argmax(1)
+    grad = np.zeros_like(s)
+    viol = margin[np.arange(n), pred] > 0
+    grad[viol, y[viol]] -= 1.0
+    grad[viol, pred[viol]] += 1.0
+    return grad / n
+
+
+def python_loss_run(ctx):
+    """examples/module/python_loss.py on ``ctx``: a SequentialModule of
+    the MLP and a PythonLossModule, trained by ``fit``; returns (the
+    parameters on the host, train accuracy by epoch, scored accuracy)."""
+    rng = np.random.RandomState(0)
+    protos = rng.normal(0, 1, (10, 64))
+    y = rng.randint(0, 10, 2000)
+    x = (protos[y] + rng.normal(0, 0.6, (2000, 64))).astype("f")
+    mt.random.seed(SEED)
+    with mt.Context(ctx):
+        it = mt.io.NDArrayIter(x, y.astype("f"), 100, shuffle=True)
+        data = mt.sym.Variable("data")
+        net = mt.sym.FullyConnected(data, name="fc1", num_hidden=64)
+        net = mt.sym.Activation(net, name="relu1", act_type="relu")
+        scores = mt.sym.FullyConnected(net, name="fc2", num_hidden=10)
+        mlp = mt.mod.Module(scores, label_names=(), context=ctx)
+        loss = mt.mod.PythonLossModule(grad_func=_hinge_grad)
+        mod = mt.mod.SequentialModule().add(mlp).add(
+            loss, take_labels=True, auto_wiring=True)
+        accs = []
+        mod.fit(it, num_epoch=8, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.2, "momentum": 0.9},
+                initializer=mt.init.Xavier(), eval_metric="acc",
+                batch_end_callback=[
+                    mt.callback.Speedometer(100, 10),
+                    lambda p: p.nbatch == 19 and accs.append(
+                        p.eval_metric.get()[1])])
+        it.reset()
+        acc = mod.score(it, "acc")[0][1]
+    assert mlp._exec_group is not None, "the chain's module fused"
+    arg, _ = mod.get_params()
+    return {n: v.data.cpu() for n, v in arg.items()}, accs, acc, \
+        loss.get_input_grads()[0].context
+
+
+def mnist_mlp_run(ctx):
+    """examples/module/mnist_mlp.py's MLP and data through
+    ``FeedForward.create`` on ``ctx`` (on the card, the fused path);
+    returns (the parameters on the host, train accuracy by epoch,
+    validation predictions, validation accuracy)."""
+    protos = np.random.RandomState(42).normal(0, 1, (10, 784))
+
+    def digits(n, seed):
+        rng = np.random.RandomState(seed)
+        y = rng.randint(0, 10, n)
+        return (protos[y] + rng.normal(0, 0.8, (n, 784))).astype("f"), \
+            y.astype("f")
+
+    xt, yt = digits(2000, 0)
+    xv, yv = digits(500, 1)
+    data = mt.sym.Variable("data")
+    net = mt.sym.FullyConnected(data, name="fc1", num_hidden=128)
+    net = mt.sym.Activation(net, name="relu1", act_type="relu")
+    net = mt.sym.FullyConnected(net, name="fc2", num_hidden=64)
+    net = mt.sym.Activation(net, name="relu2", act_type="relu")
+    net = mt.sym.FullyConnected(net, name="fc3", num_hidden=10)
+    net = mt.sym.SoftmaxOutput(net, name="softmax")
+    mt.random.seed(SEED)
+    accs = []
+    model = mt.model.FeedForward.create(
+        net, xt, yt, ctx=ctx, num_epoch=5, optimizer="sgd",
+        initializer=mt.init.Xavier(), numpy_batch_size=100,
+        learning_rate=0.1, momentum=0.9,
+        batch_end_callback=lambda p: p.nbatch == 19 and accs.append(
+            p.eval_metric.get()[1]))
+    pred = model.predict(xv)
+    fused = model._module._trainer is not None
+    return ({n: v.data.cpu() for n, v in model.arg_params.items()}, accs,
+            pred, float((pred.argmax(1) == yv).mean()), fused)
+
+
+def _family_errors(card_params, cpu_params):
+    rel = {n: ((card_params[n] - w).norm() / w.norm()).item()
+           for n, w in cpu_params.items()}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def module_family(card):
+    """The module family at the examples' own sizes and settings, on the
+    card and on the port's CPU: python_loss.py's SequentialModule and
+    PythonLossModule (the loss's numpy gradient back on the card), and
+    mnist_mlp.py's MLP through ``FeedForward.create`` (the fused path on
+    the card, ``MXTPU_MODULE_FUSED=always`` on the CPU).  Asserts every
+    parameter within FAMILY_TOL of the CPU's, train accuracy rising and
+    the examples' bars.  Returns (launches, record)."""
+    _phase("module_family")
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card_loss = python_loss_run(mt.gpu())
+    loss_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_mlp = mnist_mlp_run(mt.gpu())
+    mlp_s = time.perf_counter() - t0
+    counts = launch_counts()
+    cpu_loss = python_loss_run(mt.cpu())
+    policy = os.environ.get("MXTPU_MODULE_FUSED")
+    os.environ["MXTPU_MODULE_FUSED"] = "always"
+    try:
+        cpu_mlp = mnist_mlp_run(mt.cpu())
+    finally:
+        if policy is None:
+            os.environ.pop("MXTPU_MODULE_FUSED")
+        else:
+            os.environ["MXTPU_MODULE_FUSED"] = policy
+    loss_err, loss_worst = _family_errors(card_loss[0], cpu_loss[0])
+    mlp_err, mlp_worst = _family_errors(card_mlp[0], cpu_mlp[0])
+    pred_err = float(np.abs(card_mlp[2] - cpu_mlp[2]).max())
+    record = {
+        "module_family": "python_loss + mnist_mlp", "card": card,
+        "python_loss": {"train_acc_by_epoch": card_loss[1],
+                        "score_acc": card_loss[2],
+                        "cpu_train_acc_by_epoch": cpu_loss[1],
+                        "param_rel_err_max": loss_err, "worst": loss_worst,
+                        "grad_context": str(card_loss[3]), "s": loss_s},
+        "mnist_mlp_feedforward": {
+            "train_acc_by_epoch": card_mlp[1], "val_acc": card_mlp[3],
+            "cpu_train_acc_by_epoch": cpu_mlp[1], "fused": card_mlp[4],
+            "param_rel_err_max": mlp_err, "worst": mlp_worst,
+            "val_prob_max_abs_err": pred_err, "s": mlp_s},
+        "tolerance": FAMILY_TOL, "launches": counts,
+        "phase_s": time.perf_counter() - t_phase}
+    _emit(record)
+    print("module_family: python_loss acc %s -> score %.3f, params %.3g "
+          "from the CPU; mnist_mlp FeedForward acc %s, val %.3f, params "
+          "%.3g from the CPU" % (
+              [round(a, 3) for a in card_loss[1]], card_loss[2], loss_err,
+              [round(a, 3) for a in card_mlp[1]], card_mlp[3], mlp_err),
+          flush=True)
+    rising = all(a[-1] > a[0] for a in (card_loss[1], card_mlp[1]))
+    if not (rising and card_loss[2] > 0.9 and card_mlp[1][-1] > 0.9
+            and card_mlp[3] > 0.85 and card_mlp[4]
+            and card_loss[3] == mt.gpu() and loss_err <= FAMILY_TOL
+            and mlp_err <= FAMILY_TOL):
+        raise AssertionError("module_family gave %s" % record)
+    expect_launches("module_family", counts)
+    return counts, record
+
+
+# ----------------------------------------------------------------------
 # open-loop load: tools/serve_bench.py's arrival engine, ported
 def arrival_schedule(n, rate_rps, seed):
     """``n`` cumulative Poisson arrival times at ``rate_rps``, seeded:
@@ -3524,6 +4207,12 @@ def main():
     # cells and the RNN op are PyTorch ops, as the JAX package leaves them
     # to XLA
     paths["train_lstm_bucketing"], _ = train_lstm_bucketing(card)
+    # the rest of fit on the fused bfloat16 and classic float32 cells,
+    # then the module family
+    paths["train_resume"], _ = train_resume(card)
+    paths["train_reshape"], _ = train_reshape(card)
+    paths["train_monitor"], _ = train_monitor(card)
+    paths["module_family"], _ = module_family(card)
     records = times(latencies)
     gelu = rtc_times()
     # the paths that replay a captured graph: what one replay launched (a
@@ -3563,4 +4252,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["resume_child"]:
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        resume_child(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

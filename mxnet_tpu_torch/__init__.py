@@ -8,7 +8,11 @@ the card), trains the transformer LM and
 the zoo's convnets (ResNet, LeNet, the MLP) through
 ``mx.mod.Module.fit`` (on the card, the fused :class:`parallel.Trainer`
 step captured in one CUDA graph; elsewhere, or with
-``MXTPU_MODULE_FUSED=never``, the classic executor path), trains the
+``MXTPU_MODULE_FUSED=never``, the classic executor path), with
+crash-consistent checkpoints and resume (``mx.resilience``), a
+``mx.monitor.Monitor`` and ``Module.reshape``, chains modules
+(``SequentialModule``, ``PythonLossModule``, ``mx.model.FeedForward``),
+trains the
 bucketing LSTM LM through ``mx.mod.BucketingModule`` (``mx.rnn`` cells,
 ``BucketSentenceIter``, one parameter set for every bucket), and runs the
 imperative path: ``mx.nd`` NDArrays and the ops they reach, recorded by
@@ -43,6 +47,8 @@ from . import image
 from . import kvstore
 from . import model
 from . import callback
+from . import monitor
+from . import resilience
 from . import module
 from . import module as mod
 from . import rnn

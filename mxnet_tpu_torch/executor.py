@@ -56,13 +56,17 @@ class _GraphProgram:
 
     def _eval(self, arg_vals: Sequence[torch.Tensor],
               aux_vals: Sequence[torch.Tensor], device: torch.device,
-              is_train=False, rng: Optional[torch.Generator] = None):
+              is_train=False, rng: Optional[torch.Generator] = None,
+              monitor=None):
         """Evaluate the graph; returns ``(outputs, aux_states)``, the aux
         states as the ops updated them.  ``device`` is where ops without
         tensor inputs create theirs; samplers draw from ``rng``, by
         default the device's generator (``random.generator``).  In
         training, op bodies run under torch autograd wherever an input
-        requires a gradient."""
+        requires a gradient.  ``monitor(name, NDArray)`` sees every
+        output of every op node, named ``"<node>_<output>"`` as in the
+        JAX package, before the walk releases it; it gets the value off
+        the autograd graph."""
         ctx = OpContext(is_train=is_train, device=device,
                         rng=_random.generator(device) if rng is None else rng,
                         dtype_policy=self.dtype_policy)
@@ -82,6 +86,10 @@ class _GraphProgram:
                 key = (id(n), i)
                 if key in self._read or key in self._kept:
                     env[key] = v
+                if monitor is not None:
+                    monitor("%s_%s" % (n.name,
+                                       n.op.list_outputs(n.params)[i]),
+                            NDArray(v.detach()))
             for s, v in zip(slots, aux_updates):
                 aux_out[s] = v.detach()
             for key in self._release[pos]:
@@ -133,6 +141,7 @@ class Executor:
         # the last training forward: its outputs, still on the autograd
         # graph, and the leaf tensors that stand for the arguments
         self._graph = None
+        self._monitor = None
 
     @property
     def outputs(self):
@@ -163,7 +172,7 @@ class Executor:
             arg_vals.append(val)
         outs, new_aux = self._prog._eval(
             arg_vals, [a.data for a in self.aux_arrays], self._device,
-            is_train=is_train)
+            is_train=is_train, monitor=self._monitor)
         for arr, v in zip(self.aux_arrays, new_aux):
             if v is not arr.data:
                 arr._set_data(v)
@@ -204,6 +213,37 @@ class Executor:
                 buf._set_data(buf.data + g)
             else:
                 buf._set_data(g)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor for new input shapes (reference
+        ``executor.py:380-401``): arrays whose shape stays are this
+        executor's own, the others are new zeros, and so are all the
+        gradients."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        if arg_shapes is None:
+            raise MXNetError("cannot infer shapes from %s" % kwargs)
+
+        def keep_or_new(old, shape):
+            if tuple(old.shape) == tuple(shape):
+                return old
+            return zeros(shape, self._ctx, old.dtype)
+
+        new_args = {n: keep_or_new(self.arg_dict[n], s)
+                    for n, s in zip(self._prog.arg_names, arg_shapes)}
+        new_aux = {n: keep_or_new(self.aux_dict[n], s)
+                   for n, s in zip(self._prog.aux_names, aux_shapes)}
+        grads = None
+        if self.grad_dict:
+            grads = {n: zeros(new_args[n].shape, self._ctx,
+                              new_args[n].dtype) for n in self.grad_dict}
+        return Executor(self._symbol, self._ctx, new_args, grads,
+                        self.grad_req, new_aux)
+
+    def install_monitor(self, callback):
+        """Tap every op output of later forwards (reference
+        ``graph_executor.cc:757-778``): ``callback(name, NDArray)``."""
+        self._monitor = callback
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):

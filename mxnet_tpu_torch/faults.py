@@ -49,13 +49,26 @@ no-ops when no spec is installed), those of ``serving/server.py``:
   per-batch recovery — driving the supervision path: every pending
   future fails, the server flips to rejecting.
 
+Those of training and its persistence:
+
+* ``io_error`` — ``DataIter.__next__`` (``site=iter_next``); ``batch=``
+  counts the batches the iterator delivered over its life, so a failed
+  fetch keeps its index and ``fit``'s bounded retry
+  (``resilience.retry_io``) asks again for the batch it never got.
+* ``crash`` — the checkpoint commits: ``ckpt_write`` between a params
+  file's write and its rename (``save=`` is the process's 1-based count
+  of such saves, ``model._atomic_save``), ``manifest_write`` between a
+  manifest's write and its rename (``epoch=``).  The process dies as
+  SIGKILL would (``os._exit(137)``), or with the ``soft`` flag raises
+  :class:`InjectedCrash`; either way the ``.tmp`` stays behind and the
+  previous version stays visible.
+
 The grammar, the condition keys and the site words are the JAX
 package's (``mxnet_tpu/faults.py``), so one spec parses to the same
 directives in both packages; the JAX package's other sites (``nan_grad``
-in the Trainer's step, ``io_error``, ``crash`` at checkpoint writes,
-``host_dead``, ``hb_stall``, ``bitflip``) have no counterpart in the
-port yet, and their directives parse but never fire.  :func:`maybe_crash`
-and :class:`InjectedCrash` come along for the write sites that will.
+in the Trainer's step, ``host_dead``, ``hb_stall``, ``bitflip``) have
+no counterpart in the port yet, and their directives parse but never
+fire.
 
 Condition keys are CHECKED at parse time against the registry of keys
 the injection sites actually report (`_KNOWN_KEYS`): a typo like

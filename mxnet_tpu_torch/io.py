@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import _tsan
+from . import faults as _faults
 from . import obs as _obs
 from . import random as _random
 from . import recordio as _recordio
@@ -105,7 +106,16 @@ class DataIter(object):
         return self
 
     def __next__(self):
-        return self.next()
+        # fault-injection site: ``batch`` counts the batches this
+        # iterator delivered over its life, so a failed fetch keeps its
+        # index and a bounded retry asks again for the same batch
+        fetched = getattr(self, "_faults_delivered", 0)
+        if _faults.hit("io_error", site="iter_next", batch=fetched):
+            raise OSError("injected io_error at %s batch %d"
+                          % (type(self).__name__, fetched))
+        batch = self.next()
+        self._faults_delivered = fetched + 1
+        return batch
 
     def reset(self):
         pass
@@ -501,7 +511,9 @@ class DeviceUploadIter(_CurrentBatchAccessors, DataIter):
     consumer's work on them is done.  Arrays already on the device pass
     through, behind an event of the worker's stream.  On the CPU the same
     thread, slots and queue run with no streams.  At most ``depth``
-    staged batches wait in the queue.
+    staged batches wait in the queue.  An error of ``it`` reaches the
+    consumer after the batches staged before it, and the next ``next()``
+    asks ``it`` again, so a retry resumes where the stream failed.
 
     ``stats()`` reports where the worker's time went (``upload_s`` vs
     ``source_s``, aliased ``decode_wait_s``) and the consumer's view
@@ -548,6 +560,7 @@ class DeviceUploadIter(_CurrentBatchAccessors, DataIter):
                          ("ready_hits", 0), ("next_calls", 0))}
         self._worker = None
         self._ended = False
+        self._nstaged = 0
         # the worker starts at the first next(): neither construction nor
         # a reset advances the wrapped iterator
 
@@ -572,12 +585,11 @@ class DeviceUploadIter(_CurrentBatchAccessors, DataIter):
             self._run_staged()
 
     def _run_staged(self):
-        nbatch = 0
         try:
             while not self._stop.is_set():
                 # io.source: blocked on the inner iterator (decode);
                 # io.upload: the copies into pinned memory and their launch
-                corr = ("io%d" % nbatch) if _obs.OBS else None
+                corr = ("io%d" % self._nstaged) if _obs.OBS else None
                 t0 = time.perf_counter()
                 try:
                     with _obs.span("io.source", corr=corr, parent=None):
@@ -590,7 +602,7 @@ class DeviceUploadIter(_CurrentBatchAccessors, DataIter):
                 with _obs.span("io.upload", corr=corr, parent=None):
                     members = list(b.data) + list(b.label or [])
                     staged, event = self._upload(members)
-                nbatch += 1
+                self._nstaged += 1
                 with self._stats_lock:
                     if _tsan.TSAN:
                         _tsan.note_write("io.DeviceUploadIter.stats")
@@ -704,6 +716,7 @@ class DeviceUploadIter(_CurrentBatchAccessors, DataIter):
         self._shutdown_worker()
         self.it.reset()
         self._ended = False
+        self._nstaged = 0
         self._err = None      # a stale worker error must not resurface
 
     def next(self):
@@ -729,10 +742,16 @@ class DeviceUploadIter(_CurrentBatchAccessors, DataIter):
                 self._c["ready_hits"].inc()
             self._c["consumer_wait_s"].inc(dt_wait)
         if item is self._END:
-            self._ended = True
             if self._err is not None:
+                # a failed fetch is not the end: the worker has stopped
+                # after the batches it staged before the failure, and the
+                # next call starts another at the batch that failed, so a
+                # retried transient error loses no batch
                 err, self._err = self._err, None
+                self._worker.join()
+                self._worker = None
                 raise err
+            self._ended = True
             raise StopIteration
         batch, event = item
         if event is not None:

@@ -6,8 +6,11 @@ The reference's surface (``python/mxnet/module/base_module.py``):
 the bind -> init_params -> init_optimizer lifecycle and ``arg:``/``aux:``
 parameter files.  On the fused path ``fit`` stages each batch's upload
 ahead of its step (:class:`~mxnet_tpu_torch.io.DeviceUploadIter`), as the
-JAX package's does.  Its observability, resilience, elastic and
-integrity hooks around the epoch loop are not part of the port yet.
+JAX package's does.  ``fit`` takes a ``monitor``, and checkpoints with
+resume (``checkpoint``, ``checkpoint_period``, ``resume``; see
+``resilience.py``); each batch fetch is retried on a transient
+``OSError``.  ``elastic`` and the integrity rollback wait for the port's
+distribution slice.
 
 At an epoch's end ``fit`` copies the trained values to the host and
 writes them back (``set_params``), as the JAX package's does; on the
@@ -21,7 +24,12 @@ from collections import namedtuple
 
 from .. import metric as metric_mod
 from .. import ndarray
+from .. import obs as _obs
+from ..base import MXNetError
 from ..ndarray import NDArray
+
+ELASTIC_SLICE = ("fit(elastic=...) waits for the port's elastic.py and "
+                 "health.py (ROADMAP queue A, item 5)")
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -145,21 +153,59 @@ class BaseModule(object):
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint=None, checkpoint_period=1,
+            resume=False, elastic=None):
         """Bind, initialize, then train for epochs of
         forward_backward / update / update_metric with callbacks
-        (reference ``base_module.py:143``)."""
+        (reference ``base_module.py:143``).
+
+        ``checkpoint`` (a prefix or a
+        :class:`~mxnet_tpu_torch.resilience.CheckpointManager`) saves a
+        CRC-manifested checkpoint (params, optimizer state, the step)
+        every ``checkpoint_period`` epochs; with ``resume=True`` a killed
+        run started again with the same arguments continues from the
+        newest intact checkpoint and, with a deterministic iterator,
+        reproduces the uninterrupted run bit for bit.  ``monitor`` (a
+        :class:`~mxnet_tpu_torch.monitor.Monitor`) is installed after the
+        bind and ticks around each step."""
         assert num_epoch is not None, "please specify number of epochs"
+        if elastic is not None:
+            raise MXNetError(ELASTIC_SLICE)
         if initializer is None:
             from ..initializer import Uniform
             initializer = Uniform(0.01)
+        ckpt_mgr = None
+        if checkpoint is not None:
+            from .. import resilience
+            ckpt_mgr = checkpoint \
+                if isinstance(checkpoint, resilience.CheckpointManager) \
+                else resilience.CheckpointManager(checkpoint)
+        resumed = None
+        if resume:
+            assert ckpt_mgr is not None, \
+                "fit(resume=True) needs checkpoint=<prefix or manager>"
+            resumed = ckpt_mgr.latest()
+            if resumed is not None:
+                _, arg_params, aux_params = resumed.load_params()
+                begin_epoch = resumed.epoch
+                self.logger.info(
+                    "auto-resume: continuing from checkpoint epoch %d "
+                    "(step %s)", resumed.epoch, resumed.step)
         self.bind(train_data.provide_data, train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, force_init=force_init,
                          allow_missing=allow_missing,
                          arg_params=arg_params, aux_params=aux_params)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resumed is not None and resumed.states_path:
+            # the optimizer state (momentum; the fused trainer's update
+            # count, sentinel and random state) lands in what
+            # init_optimizer built
+            self.load_optimizer_states(resumed.states_path)
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
         validation_metric = validation_metric or eval_metric
@@ -170,7 +216,8 @@ class BaseModule(object):
             self._fit_epochs(staged, eval_data, eval_metric,
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_end_callback,
-                             eval_batch_end_callback, begin_epoch, num_epoch)
+                             eval_batch_end_callback, begin_epoch, num_epoch,
+                             monitor, ckpt_mgr, checkpoint_period)
         finally:
             if wrapped:
                 staged._shutdown_worker()
@@ -202,13 +249,16 @@ class BaseModule(object):
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback, batch_end_callback,
                     eval_end_callback, eval_batch_end_callback, begin_epoch,
-                    num_epoch):
+                    num_epoch, monitor, ckpt_mgr, checkpoint_period):
         for epoch in range(begin_epoch, num_epoch):
             elapsed = self._train_epoch(epoch, train_data, eval_metric,
-                                        batch_end_callback)
+                                        batch_end_callback, monitor)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch, elapsed)
+            # pull the trained values off the device and refresh mirrors
+            arg_snap, aux_snap = self.get_params()
+            self.set_params(arg_snap, aux_snap)
             trainer = getattr(self, "_trainer", None)
             if trainer is not None and trainer.sentinel != "off":
                 skips = trainer.sentinel_skips
@@ -216,9 +266,12 @@ class BaseModule(object):
                     self.logger.warning(
                         "Epoch[%d] sentinel skipped %d non-finite "
                         "step(s) so far", epoch, skips)
-            # pull the trained values off the device and refresh mirrors
-            arg_snap, aux_snap = self.get_params()
-            self.set_params(arg_snap, aux_snap)
+            if ckpt_mgr is not None and \
+                    (epoch + 1) % checkpoint_period == 0:
+                with _obs.span("fit.checkpoint", corr="e%d" % (epoch + 1),
+                               parent=None, attrs={"epoch": epoch + 1}):
+                    ckpt_mgr.save(self, epoch + 1, arg_params=arg_snap,
+                                  aux_params=aux_snap)
             if epoch_end_callback is not None:
                 for cb in _as_list(epoch_end_callback):
                     cb(epoch, self.symbol, arg_snap, aux_snap)
@@ -233,20 +286,37 @@ class BaseModule(object):
             train_data.reset()
 
     def _train_epoch(self, epoch, train_data, eval_metric,
-                     batch_end_callback):
+                     batch_end_callback, monitor=None):
         """One pass over ``train_data``; returns the wall time
-        (reference ``base_module.py:475``)."""
+        (reference ``base_module.py:475``).  Each fetch rides
+        :func:`~mxnet_tpu_torch.resilience.retry_io`: a transient
+        ``OSError`` of the input pipeline (an injected ``io_error``
+        too) is retried with backoff; a persistent one propagates."""
+        from ..resilience import retry_io
         eval_metric.reset()
         tic = time.time()
-        for nbatch, data_batch in enumerate(train_data):
+        data_iter = iter(train_data)
+        nbatch = 0
+        while True:
+            try:
+                data_batch = retry_io(lambda: next(data_iter),
+                                      what="train batch fetch",
+                                      logger=self.logger)
+            except StopIteration:
+                break
+            if monitor is not None:
+                monitor.tic()
             self.forward_backward(data_batch)
             self.update()
             self.update_metric(eval_metric, data_batch.label)
+            if monitor is not None:
+                monitor.toc_print()
             if batch_end_callback is not None:
                 _invoke(batch_end_callback,
                         BatchEndParam(epoch=epoch, nbatch=nbatch,
                                       eval_metric=eval_metric,
                                       locals=locals()))
+            nbatch += 1
         return time.time() - tic
 
     # ==================================================================
@@ -324,3 +394,6 @@ class BaseModule(object):
     data_shapes = property(_abstract_property)
     label_shapes = property(_abstract_property)
     output_shapes = property(_abstract_property)
+
+    def install_monitor(self, mon):
+        raise NotImplementedError()

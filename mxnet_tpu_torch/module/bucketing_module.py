@@ -19,10 +19,6 @@ from ..base import Context, MXNetError, current_context
 from .base_module import BaseModule
 from .module import Module
 
-MONITOR_SLICE = ("install_monitor waits for the port's monitor.py "
-                 "(ROADMAP queue A, item 4)")
-
-
 class BucketingModule(BaseModule):
     """Drives ``sym_gen(bucket_key) -> (symbol, data_names,
     label_names)`` with one child Module per observed bucket; a batch
@@ -46,6 +42,7 @@ class BucketingModule(BaseModule):
         self._active_key = None
         self._stale_params = False
         self._grad_req = "write"
+        self._monitor = None
 
     # -- plumbing -------------------------------------------------------
     def _generate(self, bucket_key):
@@ -68,6 +65,8 @@ class BucketingModule(BaseModule):
         child.bind(data_shapes, label_shapes, self.for_training,
                    self.inputs_need_grad, force_rebind=False,
                    shared_module=shared_module, grad_req=self._grad_req)
+        if self._monitor is not None:
+            child.install_monitor(self._monitor)
         self._buckets[bucket_key] = child
         return child
 
@@ -214,4 +213,10 @@ class BucketingModule(BaseModule):
         self._active.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError(MONITOR_SLICE)
+        """The monitor on every bound bucket and on each bucket bound
+        later (the reference's ``switch_bucket`` installs it; the JAX
+        package's reaches only the buckets bound at the call)."""
+        self._ensure()
+        self._monitor = mon
+        for child in self._buckets.values():
+            child.install_monitor(mon)

@@ -106,6 +106,27 @@ class DataParallelExecutorGroup(object):
                                   for x in data_shapes] \
             if self.inputs_need_grad else None
 
+    def reshape(self, data_shapes, label_shapes):
+        """Re-bind for new input shapes, carrying the parameter and aux
+        values over (reference ``executor_group.py:185-196``)."""
+        if data_shapes == self.data_shapes and \
+                label_shapes == self.label_shapes:
+            return
+        exe = self.execs[0]
+        arg_params = {n: exe.arg_dict[n] for n in self.param_names}
+        aux_params = dict(exe.aux_dict)
+        self.bind_exec(data_shapes, label_shapes)
+        self.set_params(arg_params, aux_params)
+
+    def install_monitor(self, mon):
+        """A :class:`~mxnet_tpu_torch.monitor.Monitor` (or a plain
+        ``callback(name, array)``) on every executor."""
+        for exe in self.execs:
+            if hasattr(mon, "install"):
+                mon.install(exe)
+            else:
+                exe.install_monitor(mon)
+
     def set_params(self, arg_params, aux_params):
         self.execs[0].copy_params_from(arg_params, aux_params,
                                        allow_extra_params=True)

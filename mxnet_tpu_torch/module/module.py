@@ -28,17 +28,24 @@ from __future__ import annotations
 
 import logging
 import os
+import pickle
 import warnings
 
 from .. import optimizer as opt
+from .. import random as _random
 from ..base import Context, MXNetError, current_context
 from ..initializer import Uniform, InitDesc
 from ..io import DataDesc
-from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
-                     _update_params_on_kvstore, load_checkpoint)
+from ..model import (_commit_file, _create_kvstore, _initialize_kvstore,
+                     _update_params, _update_params_on_kvstore,
+                     load_checkpoint, save_checkpoint)
 from ..ndarray import zeros
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
+
+# the tag of a classic-path states file (the updater's blob, the
+# generator's state and the optimizer's update counts)
+_CLASSIC_STATES = "mxnet_tpu_torch classic states"
 
 MESH_SLICE = ("a mesh context (several devices in one fused step) waits for "
               "the port's mesh and KVStore slice")
@@ -118,14 +125,14 @@ class Module(BaseModule):
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """Checkpoint symbol + params (+ optimizer states)
-        (reference ``module.py:129``)."""
-        self._symbol.save("%s-symbol.json" % prefix)
-        param_name = "%s-%04d.params" % (prefix, epoch)
-        self.save_params(param_name)
-        logging.info("Saved checkpoint to \"%s\"", param_name)
+        (reference ``module.py:129``), each file committed atomically
+        (``model._commit_file``)."""
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, self._symbol, arg_params,
+                        aux_params)
         if save_optimizer_states:
             state_name = "%s-%04d.states" % (prefix, epoch)
-            self.save_optimizer_states(state_name)
+            _commit_file(state_name, self.save_optimizer_states)
             logging.info("Saved optimizer state to \"%s\"", state_name)
 
     # ------------------------------------------------------------------
@@ -336,6 +343,64 @@ class Module(BaseModule):
                                 for n in self._param_names}
             self._aux_params = {n: zeros(aux_map[n], host)
                                 for n in self._aux_names}
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """New batch shapes for a bound module (reference
+        ``module.py:433``).  The classic path re-binds its executor and
+        carries the parameters over; the fused path's Trainer re-binds
+        for the new shapes and keeps its parameters, aux and optimizer
+        state where they are (a CUDA graph per batch shape)."""
+        assert self.binded
+        self._data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                             for x in data_shapes]
+        if label_shapes is not None and len(label_shapes):
+            self._label_shapes = [x if isinstance(x, DataDesc)
+                                  else DataDesc(*x) for x in label_shapes]
+        else:
+            self._label_shapes = None
+        if self._exec_group is not None:
+            self._exec_group.reshape(self._data_shapes, self._label_shapes)
+        elif self._trainer is not None:
+            self._trainer.reshape(
+                {d.name: d.shape for d in self._data_shapes},
+                {d.name: d.shape for d in (self._label_shapes or [])})
+
+    def _set_classic_states(self, blob):
+        """The updater's states, the generator's state and the update
+        counts, from the tagged tuple :meth:`save_optimizer_states`
+        writes on the classic path."""
+        try:
+            loaded = pickle.loads(blob)
+        except Exception as e:                      # noqa: BLE001
+            raise MXNetError("optimizer state blob is truncated or "
+                             "corrupt: %s: %s" % (type(e).__name__, e)) \
+                from e
+        if not (isinstance(loaded, tuple) and len(loaded) == 3
+                and loaded[0] == _CLASSIC_STATES):
+            raise MXNetError("optimizer state blob holds a %s, not the "
+                             "port's classic (tag, updater states, extra) "
+                             "tuple (a JAX package's states do not load "
+                             "here)" % type(loaded).__name__)
+        _, updater_blob, extra = loaded
+        self._updater.set_states(updater_blob)
+        if extra["rng"] is not None:
+            _random.generator(self._context[0].torch_device()).set_state(
+                extra["rng"])
+        self._optimizer.num_update = extra["num_update"]
+        self._optimizer._index_update_count = dict(extra["counts"])
+
+    def install_monitor(self, mon):
+        """Tap every op output of the executor (reference
+        ``module.py:691-699``).  The fused path's step is one CUDA graph
+        with no per-op taps: it warns, as the JAX package's does."""
+        assert self.binded
+        if self._exec_group is not None:
+            self._exec_group.install_monitor(mon)
+        else:
+            self.logger.warning(
+                "Monitor requires the classic executor path; the fused "
+                "path has no per-op taps (the whole step is one CUDA "
+                "graph). Set MXTPU_MODULE_FUSED=never to monitor.")
 
     def _new_trainer(self, optimizer):
         """A bound Trainer on the module's context, its params from the
@@ -553,27 +618,41 @@ class Module(BaseModule):
         return 0
 
     def save_optimizer_states(self, fname):
+        """The optimizer state: the fused Trainer's blob, or on the
+        classic path the updater's states with the device generator's
+        state and the optimizer's update counts beside them (so a resumed
+        run draws the Dropout masks, and steps with the bias corrections
+        and lr schedule, that the uninterrupted one would)."""
         assert self.optimizer_initialized
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
             return
+        if self._trainer is not None:
+            blob = self._trainer.get_opt_states()
+        else:
+            rng = _random.generator(self._context[0].torch_device())
+            o = self._optimizer
+            blob = pickle.dumps((_CLASSIC_STATES, self._updater.get_states(),
+                                 {"rng": rng.get_state(),
+                                  "num_update": o.num_update,
+                                  "counts": dict(o._index_update_count)}))
         with open(fname, "wb") as fout:
-            fout.write(self._trainer.get_opt_states()
-                       if self._trainer is not None
-                       else self._updater.get_states())
+            fout.write(blob)
 
     def load_optimizer_states(self, fname):
+        """Restore a state file of the port's (a JAX package's does not
+        load here: it raises, naming the file)."""
         assert self.optimizer_initialized
         if self._update_on_kvstore:
             self._kvstore.load_optimizer_states(fname)
             return
         with open(fname, "rb") as fin:
             blob = fin.read()
-        if self._trainer is None:
-            self._updater.set_states(blob)
-            return
         try:
-            self._trainer.set_opt_states(blob)
+            if self._trainer is None:
+                self._set_classic_states(blob)
+            else:
+                self._trainer.set_opt_states(blob)
         except MXNetError as e:
             raise MXNetError("optimizer states file %r: %s"
                              % (fname, e)) from e

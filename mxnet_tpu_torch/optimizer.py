@@ -276,6 +276,15 @@ def _to_device(state, device):
     return state
 
 
+def _is_state(state):
+    """Whether ``state`` is made of the port's NDArrays (or None)."""
+    if state is None or isinstance(state, NDArray):
+        return True
+    if isinstance(state, (tuple, list)):
+        return all(_is_state(s) for s in state)
+    return False
+
+
 class Updater(object):
     """Bridges the ``(index, grad, weight)`` callback onto an Optimizer,
     creating each index's state at its first update.  ``get_states``
@@ -294,7 +303,21 @@ class Updater(object):
         self.optimizer.update(index, weight, grad, state)
 
     def set_states(self, blob):
-        self.states = pickle.loads(blob)
+        """Restore :meth:`get_states`' pickle.  A blob of another kind (the
+        JAX package's, whose states are its own arrays) raises."""
+        try:
+            states = pickle.loads(blob)
+        except Exception as e:                      # noqa: BLE001
+            raise MXNetError("optimizer state blob is truncated or "
+                             "corrupt: %s: %s" % (type(e).__name__, e)) \
+                from e
+        if not isinstance(states, dict) or not all(
+                _is_state(v) for v in states.values()):
+            raise MXNetError("optimizer state blob holds %s, not the "
+                             "port's NDArray states (a JAX package's "
+                             "states do not load here)"
+                             % type(states).__name__)
+        self.states = states
 
     def get_states(self):
         host = torch.device("cpu")

@@ -18,13 +18,16 @@ Ported here: one device, ``compute_dtype`` (float32 master weights,
 gradients and aux states; narrow products summed in float32), the
 ``dtype_policy`` of the backward formulations, the sentinel
 (off/skip/abort) with loss scaling (none, fixed or dynamic),
-``grad_accum`` and the optimizer-state round trip.  Aux states (BatchNorm's
-moving statistics) are float32 masters, cast to the compute dtype for the
-forward like the params, and the step writes their new values into them
-in place.  A mesh, tensor-parallel ``param_specs``, ``zero=1``,
-``remat``, ``integrity``, tune plans (``plan=``), the persisted program
-cache and the static analyses wait for later slices of the port, and
-each raises :class:`MXNetError` naming its slice.
+``grad_accum``, the optimizer-state round trip (with the device
+generator's state, for a resume that draws the same masks) and
+``reshape`` to new batch shapes (a graph per shape, one state).  Aux
+states (BatchNorm's moving statistics) are float32 masters, cast to the
+compute dtype for the forward like the params, and the step writes their
+new values into them in place.  A mesh, tensor-parallel
+``param_specs``, ``zero=1``, ``remat``, ``integrity``, tune plans
+(``plan=``), the persisted program cache and the static analyses wait
+for later slices of the port, and each raises :class:`MXNetError` naming
+its slice.
 """
 from __future__ import annotations
 
@@ -287,6 +290,38 @@ class Trainer:
     # ------------------------------------------------------------------
     def bind(self, data_shapes: Dict[str, tuple],
              label_shapes: Optional[Dict[str, tuple]] = None):
+        self._set_shapes(data_shapes, label_shapes)
+        if self.has_rng and self.device.type == "cuda" and not hasattr(
+                torch.cuda.CUDAGraph, "register_generator_state"):
+            raise MXNetError(
+                "this graph draws random numbers, and this torch (%s) cannot "
+                "register the port's generator with a CUDA graph "
+                "(CUDAGraph.register_generator_state)" % torch.__version__)
+        self._build()
+        return self
+
+    def reshape(self, data_shapes: Dict[str, tuple],
+                label_shapes: Optional[Dict[str, tuple]] = None):
+        """Take batches of new shapes.  The parameters, aux states and
+        optimizer state stay in their tensors, and each batch signature
+        keeps its own CUDA graph (a shape seen before replays its graph;
+        a new one warms up and is captured).  New shapes that would
+        change a parameter's or an aux state's shape raise."""
+        old = (self._arg_shapes, self._aux_shapes, self._input_shapes)
+        self._set_shapes(data_shapes, label_shapes)
+        changed = [n for n in self.param_names
+                   if tuple(self._arg_shapes[n]) != tuple(old[0][n])]
+        changed += [n for n in self.aux_names
+                    if tuple(self._aux_shapes[n]) != tuple(old[1][n])]
+        if changed:
+            self._arg_shapes, self._aux_shapes, self._input_shapes = old
+            raise MXNetError("reshape would change the shapes of %s; bind "
+                             "a new trainer for that" % changed)
+        return self
+
+    def _set_shapes(self, data_shapes, label_shapes):
+        """Infer every argument's shape from the batch shapes, and keep
+        the inputs' (``_input_shapes``: what ``_device_batch`` takes)."""
         shapes = dict(data_shapes)
         shapes.update(label_shapes or {})
         arg_shapes, out_shapes, aux_shapes = self.symbol.infer_shape(**shapes)
@@ -307,24 +342,18 @@ class Trainer:
                         "%r has shape %s (batch %d): reduced-output heads "
                         "are not supported on this path"
                         % (oname, tuple(oshape or ()), bsz))
-        self._arg_shapes = dict(zip(self.prog.arg_names, arg_shapes))
-        self._aux_shapes = dict(zip(self.aux_names, aux_shapes))
-        self._input_shapes = {n: self._arg_shapes[n]
-                              for n in self.data_names + self.label_names}
+        arg_map = dict(zip(self.prog.arg_names, arg_shapes))
+        input_shapes = {n: arg_map[n]
+                        for n in self.data_names + self.label_names}
         if self.grad_accum > 1:
-            for n, s in self._input_shapes.items():
+            for n, s in input_shapes.items():
                 if s[0] % self.grad_accum:
                     raise MXNetError(
                         "grad_accum=%d does not divide the %r batch dim %d"
                         % (self.grad_accum, n, s[0]))
-        if self.has_rng and self.device.type == "cuda" and not hasattr(
-                torch.cuda.CUDAGraph, "register_generator_state"):
-            raise MXNetError(
-                "this graph draws random numbers, and this torch (%s) cannot "
-                "register the port's generator with a CUDA graph "
-                "(CUDAGraph.register_generator_state)" % torch.__version__)
-        self._build()
-        return self
+        self._arg_shapes = arg_map
+        self._aux_shapes = dict(zip(self.aux_names, aux_shapes))
+        self._input_shapes = input_shapes
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     force_init=False):
@@ -609,9 +638,16 @@ class Trainer:
         return entry
 
     # ------------------------------------------------------------------
-    def _device_batch(self, batch: Dict) -> Dict:
+    def _device_batch(self, batch: Dict, fill_labels=False) -> Dict:
+        """The batch on the device, 64-bit types narrowed.  With
+        ``fill_labels`` a missing label is zeros of its bound shape (an
+        inference forward of a predict iterator reads none)."""
         out = {}
         for n in self._input_shapes:
+            if n not in batch and fill_labels and n in self.label_names:
+                out[n] = torch.zeros(self._input_shapes[n],
+                                     device=self.device)
+                continue
             v = batch[n]
             if isinstance(v, NDArray):
                 v = v.data
@@ -670,7 +706,7 @@ class Trainer:
         return float(self._sent["scale"])
 
     def _eval(self, batch, is_train):
-        dev_batch = self._device_batch(batch)
+        dev_batch = self._device_batch(batch, fill_labels=not is_train)
         with torch.no_grad(), _float32_sums():
             outs, _ = self._forward(self.params,
                                     [self.aux[n] for n in self.aux_names],
@@ -688,32 +724,55 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def get_opt_states(self) -> bytes:
-        """Serialize ``(num_update, optimizer state[, sentinel state])``:
-        the state as CPU tensors, the sentinel's counters and loss scale
-        as numbers.  The port's own pickle format: the JAX package's
-        files hold numpy arrays and do not load here."""
+        """Serialize ``(num_update, optimizer state, sentinel state or
+        None, random state)``: the state as CPU tensors, the sentinel's
+        counters and loss scale as numbers, and the device generator's
+        state when the graph draws (Dropout), so a resumed run draws the
+        masks the uninterrupted one would.  The port's own pickle
+        format: the JAX package's files hold numpy arrays and do not
+        load here."""
         state = _tree_map(lambda v: v.detach().cpu(), self.opt_state)
-        if self._sent is None:
-            return pickle.dumps((self.num_update, state))
-        sent = {k: v.item() for k, v in self._sent.items()}
-        return pickle.dumps((self.num_update, state, sent))
+        sent = None if self._sent is None else \
+            {k: v.item() for k, v in self._sent.items()}
+        rng = _random.generator(self.device).get_state() \
+            if self.has_rng else None
+        return pickle.dumps((self.num_update, state, sent, {"rng": rng}))
 
     def set_opt_states(self, blob: bytes) -> None:
+        """Restore :meth:`get_opt_states`' blob into the tensors a
+        captured step reads, so a graph captured before and one captured
+        after see the same state; ``num_update`` (and with it the lr and
+        ``t`` scalars of the next step) and the sentinel as they were at
+        the save."""
         try:
             loaded = pickle.loads(blob)
         except Exception as e:                      # noqa: BLE001
             raise MXNetError(
-                "optimizer state blob is truncated or corrupt: %s"
-                % (e,)) from e
-        sent_host = None
-        if len(loaded) == 3:
-            num_update, state, sent_host = loaded
-        else:                      # pre-sentinel blobs stay loadable
-            num_update, state = loaded
-        if sorted(state) != sorted(self.opt_state):
+                "optimizer state blob is truncated or corrupt: %s: %s"
+                % (type(e).__name__, e)) from e
+        if not isinstance(loaded, tuple) or len(loaded) != 4:
+            raise MXNetError("optimizer state blob holds a %s, not the "
+                             "fused trainer's (num_update, state, "
+                             "sentinel, extra) tuple"
+                             % type(loaded).__name__)
+        num_update, state, sent_host, extra = loaded
+        if not isinstance(state, dict) or sorted(state) != sorted(
+                self.opt_state):
             raise MXNetError("optimizer state blob holds %s, this trainer "
-                             "trains %s" % (sorted(state),
-                                            sorted(self.opt_state)))
+                             "trains %s" % (sorted(state) if isinstance(
+                                 state, dict) else type(state).__name__,
+                                 sorted(self.opt_state)))
+        for cur, new in zip(_leaves(self.opt_state), _leaves(state)):
+            if not isinstance(new, torch.Tensor):
+                raise MXNetError(
+                    "optimizer state blob holds %s leaves, not the port's "
+                    "tensors (a JAX package's states do not load here)"
+                    % type(new).__name__)
+            if new.shape != cur.shape or new.dtype != cur.dtype:
+                raise MXNetError("optimizer state blob holds a %s %s leaf "
+                                 "where this trainer has %s %s"
+                                 % (tuple(new.shape), new.dtype,
+                                    tuple(cur.shape), cur.dtype))
         self.num_update = num_update
         self.optimizer.num_update = num_update
         with torch.no_grad():
@@ -721,12 +780,16 @@ class Trainer:
                       state)
             if self.sentinel != "off":
                 if sent_host is None:
-                    # the blob predates the sentinel: seed the effective
-                    # update counter from num_update (no skips recorded)
+                    # the saving trainer ran without the sentinel: seed
+                    # the effective update counter from num_update (no
+                    # skips recorded)
                     sent_host = {k: v.item() for k, v in
                                  self._init_sentinel(num_update).items()}
                 for k, v in sent_host.items():
                     self._sent[k].fill_(v)
+        rng = (extra or {}).get("rng")
+        if rng is not None and self.has_rng:
+            _random.generator(self.device).set_state(rng)
 
     def get_params(self):
         """Copies of the trained params and aux states, as NDArrays on the

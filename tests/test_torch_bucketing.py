@@ -318,8 +318,10 @@ def test_install_monitor_names_its_slice_and_the_context_is_kept():
     # made under ``with mt.cpu()``: every bucket binds there, later too
     mod.bind([("data", (BATCH, 6))], [("softmax_label", (BATCH, 6))])
     assert _exec(mod, 6).arg_dict["pred_weight"].context == mt.cpu()
-    with pytest.raises(mt.MXNetError, match="monitor"):
-        mod.install_monitor(object())
+    # the monitor is ported: it lands on the bound bucket's executor
+    mon = mt.monitor.Monitor(1)
+    mod.install_monitor(mon)
+    assert mon._executors == [_exec(mod, 6)]
     with pytest.raises(mt.MXNetError, match="not supported"):
         mt.mod.BucketingModule(_lm(mt), default_bucket_key=6,
                                context=mt.cpu()).bind(
