@@ -132,7 +132,24 @@ fails:
    examples/module/mnist_mlp.py's MLP through ``FeedForward.create`` (the
    fused path), at the examples' sizes, each against the port's CPU run,
    train accuracy rising past the examples' bars;
-18. times: each kernel, its plain version and the PyTorch library call
+18. train_zoo: examples/image-classification/common/fit.py's harness on
+   each of the zoo's networks at full width (alexnet, vgg-16, googlenet,
+   inception-bn, inception-v3, inception-resnet-v2, resnext-50; 1000
+   classes, batch 128 of 224^2 or 299^2, NCHW, bfloat16 compute), each
+   with one of the example's optimizers, ``Module.fit`` over 8 steps of one
+   repeated batch with a MultiFactorScheduler stepping inside the run,
+   Xavier("gaussian", "in", 2), accuracy and top-5 accuracy, a device
+   store: one capture and a replay a step, the new lr read by the graph,
+   a falling loss, none of the port's kernels; step ms, img/s, capture
+   ms, peak memory; beside each, one float32 step at batch 2 held against
+   the port's CPU run;
+19. optimizers: every registered optimizer on mnist_mlp.py's MLP, three
+   classic and three fused steps on the card against the port's CPU
+   (SGLD on the classic path, its noise held by its moments and its
+   determinism per seed), the five update ops against their CPU results,
+   and a ``fit(checkpoint=, resume=True)`` with centered RMSProp crashed
+   inside a save and resumed, bitwise the uninterrupted run;
+20. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
@@ -303,6 +320,78 @@ MONITOR_STEPS, MONITOR_TOL = 2, 1e-4
 # FeedForward.create; the card against the port's CPU run by relative
 # norm of each parameter
 FAMILY_TOL = 1e-5
+# train_zoo: examples/image-classification/common/fit.py's harness on each
+# network of the zoo at full width: 1000 classes, NCHW as the builders
+# write it, batch 128 (fit.py:81), bfloat16 compute, ZOO_STEPS steps of
+# one batch (numpy, from SEED) repeated through Module.fit with a device
+# store, a MultiFactorScheduler stepping the lr by 0.1 after ZOO_LR_STEP
+# updates (fit.py:30), Xavier("gaussian", "in", 2) (fit.py:136), accuracy
+# and top-5 accuracy (fit.py:138-141), and one of the example's
+# optimizers each (fit.py:78,133; momentum 0.9 and wd 1e-4, fit.py's
+# defaults).  The learning rates are the largest of those tried on the
+# card whose loss fell over the run: vgg-16's NAG diverged at 1e-2 and
+# resnext-50's SGD rose at fit.py's 0.1 (my chip runs 1-2)
+ZOO_CLASSES, ZOO_BATCH, ZOO_STEPS, ZOO_LR_STEP = 1000, 128, 8, 4
+ZOO_INIT = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
+ZOO = [
+    ("alexnet", 224, "sgd",
+     {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}),
+    ("vgg-16", 224, "nag",
+     {"learning_rate": 1e-3, "momentum": 0.9, "wd": 1e-4}),
+    ("googlenet", 224, "adagrad", {"learning_rate": 0.01, "wd": 1e-4}),
+    ("inception-bn", 224, "rmsprop",
+     {"learning_rate": 1e-3, "centered": True, "wd": 1e-4}),
+    ("inception-v3", 299, "adadelta", {"wd": 1e-4}),
+    ("inception-resnet-v2", 299, "adam", {"learning_rate": 1e-3,
+                                          "wd": 1e-4}),
+    ("resnext-50", 224, "sgd",
+     {"learning_rate": 0.02, "momentum": 0.9, "wd": 1e-4}),
+]
+# each network's float32 step (TF32 off, Dropout at p = 0) on the card
+# against the port's CPU run at ZOO_CHECK_BATCH, relative norm per array.
+# Measured on the H100 (my chip runs 1-2, the same numbers in both): the
+# step's output, the classifier's weight gradient and the moving
+# statistics at most 4.5e-5 (inception-v3's head); every parameter's
+# gradient a median of at most 2.5e-2 (resnext-50, inception-v3: their
+# BatchNorms at batch 2 are ill-conditioned, as ResNet-50's at batch 4
+# are, RESNET_TOL above; alexnet 9.2e-7), the largest weight gradient's
+# 3.6e-2 (inception-v3's mixed0_proj_conv_weight).  A BatchNorm beta
+# whose gradient cancels to near 0 is noise (inception-resnet-v2's
+# b8_9_up_bn_beta: 1.48) and is printed, not held.  Held: the first
+# three to ZOO_TOL, the median and the largest weight gradient to
+# ZOO_GRAD_MEDIAN_TOL and ZOO_GRAD_MAX_TOL, each 4-11 times the gap
+ZOO_CHECK_BATCH = 2
+ZOO_TOL = 5e-4
+ZOO_GRAD_MEDIAN_TOL, ZOO_GRAD_MAX_TOL = 0.1, 0.2
+# optimizers: every registered optimizer on examples/module/mnist_mlp.py's
+# MLP (784-128-64-10, batch 100, fc1's weight at lr_mult 0.5), OPT_STEPS
+# classic and OPT_STEPS fused steps with wd, clip and rescale, the card
+# against the port's CPU run by relative norm of each parameter (SGLD,
+# whose noise the CPU's generator draws otherwise, against a second card
+# run from the same seed, bitwise); the five update ops over OPT_OP_SIZE
+# elements; SGLD's noise over OPT_OP_SIZE
+OPT_STEPS, OPT_BATCH, OPT_OP_SIZE = 3, 100, 1 << 20
+OPT_COMMON = {"wd": 1e-3, "clip_gradient": 0.05, "rescale_grad": 1.0 / 100}
+OPTIMIZERS = [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("ccsgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("sgld", {"learning_rate": 0.01}),
+    ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-3}),
+    ("adagrad", {"learning_rate": 0.05}),
+    ("rmsprop", {"learning_rate": 1e-3}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True,
+                 "clip_weights": 0.5}),
+    ("adadelta", {}),
+    ("ftrl", {"learning_rate": 0.1}),
+    ("test", {}),
+]
+OPT_TOL, OPT_OP_TOL = 1e-5, 1e-6
+# the bitwise resume: the MLP's fused path with centered RMSProp,
+# OPT_RESUME_EPOCHS epochs of 4 batches, a checkpoint each, the run
+# crashed (in process) inside its second save
+OPT_RESUME_EPOCHS, OPT_RESUME_FAULT = 4, "crash@ckpt_write:save=2:soft"
 # serve_server: the JAX package's documented serving cell
 # (docs/how_to/serving.md:33-45, tools/serve_bench.py:131-142): buckets,
 # the request rows mix (serve_bench's default), ResNet-50's image side,
@@ -1879,6 +1968,23 @@ def cyclic_tokens(n, rng, dtype=np.float32):
 TRAIN_INIT = dict(factor_type="in", magnitude=2.0)     # Xavier's
 
 
+class _fused_policy:
+    """``MXTPU_MODULE_FUSED`` set to ``policy`` inside the scope."""
+
+    def __init__(self, policy):
+        self.policy, self.saved = policy, None
+
+    def __enter__(self):
+        self.saved = os.environ.get("MXTPU_MODULE_FUSED")
+        os.environ["MXTPU_MODULE_FUSED"] = self.policy
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("MXTPU_MODULE_FUSED")
+        else:
+            os.environ["MXTPU_MODULE_FUSED"] = self.saved
+
+
 def gpt2_train_cell(fused=False, compute_dtype=None):
     """The trained cell: the LM at GPT-2 small's widths and full depth in
     a Module on the card, bound, initialized (Xavier, from SEED) and with
@@ -1895,16 +2001,9 @@ def gpt2_train_cell(fused=False, compute_dtype=None):
                          np.int32 if compute_dtype else np.float32)
     symbol = mt.models.transformer.get_symbol(**GPT2_SMALL)
     data = mt.io.NDArrayIter(X, Y, batch_size=BATCH)     # on the card
-    policy = os.environ.pop("MXTPU_MODULE_FUSED", None)
-    if not fused:
-        os.environ["MXTPU_MODULE_FUSED"] = "never"
-    try:
+    with _fused_policy("auto" if fused else "never"):
         mod = mt.mod.Module(symbol, context=mt.gpu(),
                             compute_dtype=compute_dtype)
-    finally:
-        os.environ.pop("MXTPU_MODULE_FUSED", None)
-        if policy is not None:
-            os.environ["MXTPU_MODULE_FUSED"] = policy
     mt.random.seed(SEED)
     t0 = time.perf_counter()
     mod.bind(data.provide_data, data.provide_label)
@@ -3816,15 +3915,8 @@ def module_family(card):
     mlp_s = time.perf_counter() - t0
     counts = launch_counts()
     cpu_loss = python_loss_run(mt.cpu())
-    policy = os.environ.get("MXTPU_MODULE_FUSED")
-    os.environ["MXTPU_MODULE_FUSED"] = "always"
-    try:
+    with _fused_policy("always"):
         cpu_mlp = mnist_mlp_run(mt.cpu())
-    finally:
-        if policy is None:
-            os.environ.pop("MXTPU_MODULE_FUSED")
-        else:
-            os.environ["MXTPU_MODULE_FUSED"] = policy
     loss_err, loss_worst = _family_errors(card_loss[0], cpu_loss[0])
     mlp_err, mlp_worst = _family_errors(card_mlp[0], cpu_mlp[0])
     pred_err = float(np.abs(card_mlp[2] - cpu_mlp[2]).max())
@@ -3856,6 +3948,465 @@ def module_family(card):
             and mlp_err <= FAMILY_TOL):
         raise AssertionError("module_family gave %s" % record)
     expect_launches("module_family", counts)
+    return counts, record
+
+
+# ----------------------------------------------------------------------
+# train_zoo: the image-classification zoo through fit.py's harness
+def _no_dropout(symbol):
+    """``symbol`` with every Dropout at p = 0 (through its JSON): the
+    card's and the CPU's generators draw other masks."""
+    graph = json.loads(symbol.tojson())
+    for node in graph["nodes"]:
+        if node["op"] == "Dropout":
+            node["attrs"]["p"] = "0.0"
+    return mt.sym.load_json(json.dumps(graph))
+
+
+def _head(symbol):
+    """The classifier's weight: the FullyConnected weight of
+    ZOO_CLASSES rows."""
+    args, _, _ = symbol.infer_shape(data=(1, 3, 299, 299))
+    return [n for n, s in zip(symbol.list_arguments(), args)
+            if n.endswith("_weight") and len(s) == 2
+            and s[0] == ZOO_CLASSES][0]
+
+
+def zoo_params_and_batch(symbol, batch, image):
+    """Random weights and one batch, numpy from SEED: He-normal weights
+    (the classifier's at 1e-2 of it, so the softmax is not saturated),
+    gamma 1, beta and biases 0, moving statistics 0 and 1, N(0, 1)
+    images and labels in [0, classes)."""
+    rng = np.random.default_rng(SEED)
+    shape = (batch, 3, image, image)
+    args, _, auxs = symbol.infer_shape(data=shape, softmax_label=(batch,))
+    head = _head(symbol)
+    arg = {}
+    for n, s in zip(symbol.list_arguments(), args):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("_gamma"):
+            arg[n] = np.ones(s, np.float32)
+        elif n.endswith(("_beta", "_bias")):
+            arg[n] = np.zeros(s, np.float32)
+        else:
+            scale = np.sqrt(2.0 / np.prod(s[1:])) * (1e-2 if n == head else 1)
+            arg[n] = (rng.standard_normal(s, dtype=np.float32)
+                      * scale).astype(np.float32)
+    aux = {n: (np.ones(s, np.float32) if n.endswith("_var")
+               else np.zeros(s, np.float32))
+           for n, s in zip(symbol.list_auxiliary_states(), auxs)}
+    x = rng.standard_normal(shape, dtype=np.float32)
+    y = rng.integers(0, ZOO_CLASSES, batch).astype(np.float32)
+    return arg, aux, x, y
+
+
+def zoo_step_vs_cpu(network, image, optimizer, params):
+    """One fused float32 step of ``network`` (Dropout at p = 0, TF32 off)
+    at ZOO_CHECK_BATCH on the card and on the port's CPU, from the same
+    random weights, with the network's optimizer: every gradient, the
+    step's output, the moving statistics and the parameters after the
+    step, as relative norms."""
+    symbol = _no_dropout(mt.models.get_symbol(network,
+                                              num_classes=ZOO_CLASSES))
+    b = ZOO_CHECK_BATCH
+    arg, aux, x, y = zoo_params_and_batch(symbol, b, image)
+    batch = {"data": x, "softmax_label": y}
+    runs, secs = {}, {}
+    for side, ctx in (("card", mt.gpu()), ("cpu", mt.cpu())):
+        t0 = time.perf_counter()
+        with ctx:
+            tr = mt.parallel.Trainer(symbol, mt.optimizer.create(
+                optimizer, rescale_grad=1.0 / b, **params))
+        tr.bind({"data": x.shape}, {"softmax_label": y.shape})
+        tr.init_params(
+            arg_params={n: torch.from_numpy(v) for n, v in arg.items()},
+            aux_params={n: torch.from_numpy(v) for n, v in aux.items()})
+        _, _, grads = tr._run_backward(tr.params, tr.aux,
+                                       tr._device_batch(batch), None)
+        out = tr.step(batch)[0].data
+        runs[side] = ({n: g.cpu() for n, g in grads.items()},
+                      {"step_output": out.cpu()},
+                      {n: v.cpu() for n, v in tr.aux.items()},
+                      {n: v.cpu() for n, v in tr.params.items()})
+        secs[side] = time.perf_counter() - t0
+        del tr, grads, out
+    (cg, co, cm, cp), (hg, ho, hm, hp) = runs["card"], runs["cpu"]
+    grad = _rel_norms(cg, hg)
+    worst = max(grad, key=grad.get)
+    weights = {n: e for n, e in grad.items() if n.endswith("_weight")}
+    worst_w = max(weights, key=weights.get)
+    head = _head(symbol)
+    moving = _rel_norms(cm, hm) if hm else {"none": 0.0}
+    stepped = _rel_norms(cp, hp)
+    held = {"step_output": _rel_norms(co, ho)["step_output"],
+            head + "_grad": grad[head],
+            "moving": max(moving.values())}
+    record = {"network": network, "batch": b, "image": image,
+              "optimizer": optimizer, "held_to_tolerance": held,
+              "grad_rel_err_median": statistics.median(grad.values()),
+              "grad_rel_err_max": grad[worst], "worst_grad": worst,
+              "weight_grad_rel_err_max": weights[worst_w],
+              "worst_weight_grad": worst_w,
+              "params_after_step_rel_err_max": max(stepped.values()),
+              "params_after_step_rel_err_median":
+                  statistics.median(stepped.values()),
+              "finite": all(bool(torch.isfinite(v).all()) for v in
+                            list(cg.values()) + list(co.values())),
+              "seconds": secs}
+    torch.cuda.empty_cache()
+    ok = record["finite"] and all(math.isfinite(e) and e <= ZOO_TOL
+                                  for e in held.values()) \
+        and record["grad_rel_err_median"] <= ZOO_GRAD_MEDIAN_TOL \
+        and record["weight_grad_rel_err_max"] <= ZOO_GRAD_MAX_TOL
+    return record, ok
+
+
+def zoo_fit(network, image, optimizer, params):
+    """``Module.fit`` of ``network`` at full width on the card: bfloat16
+    compute, ZOO_BATCH images of ``image``^2, ZOO_STEPS steps of one
+    repeated batch, fit.py's scheduler, initializer, metrics and store.
+    Returns its record."""
+    rng = np.random.default_rng(SEED)
+    shape = (ZOO_BATCH, 3, image, image)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)) \
+        .cuda()
+    y = torch.from_numpy(rng.integers(0, ZOO_CLASSES, ZOO_BATCH)
+                         .astype(np.int32)).cuda()
+    data = mt.io.NDArrayIter(
+        mt.nd.NDArray(x.repeat(ZOO_STEPS, 1, 1, 1)),
+        mt.nd.NDArray(y.repeat(ZOO_STEPS)), batch_size=ZOO_BATCH)
+    symbol = mt.models.get_symbol(network, num_classes=ZOO_CLASSES)
+    mod = mt.mod.Module(symbol, context=mt.gpu(), compute_dtype="bfloat16")
+    metric = mt.metric.create(["accuracy", mt.metric.create(
+        "top_k_accuracy", top_k=5)])
+    sched = mt.lr_scheduler.MultiFactorScheduler(step=[ZOO_LR_STEP],
+                                                 factor=0.1)
+    steps, last = [], {}
+
+    def on_batch(param):
+        """Synchronise; the step's time, its lr and the cross-entropy of
+        the batch's outputs (the step's forward)."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        probs = param.locals["self"].get_outputs()[0].data
+        label = param.locals["data_batch"].label[0].data.long()
+        ce = -probs.gather(1, label[:, None]).clamp(min=1e-30).log().mean()
+        steps.append({"s": now - last["t"], "ce": float(ce),
+                      "lr": param.locals["self"]._trainer._lr_cache})
+        last["t"] = time.perf_counter()
+
+    mt.random.seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = last["t"] = time.perf_counter()
+    mod.fit(data, num_epoch=1, kvstore="device", optimizer=optimizer,
+            optimizer_params=dict(params, lr_scheduler=sched),
+            initializer=mt.init.Xavier(**ZOO_INIT), eval_metric=metric,
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    tr = mod._trainer
+    if tr is None:
+        raise AssertionError("%s took the classic path" % network)
+    replay_s = statistics.median(s["s"] for s in steps[2:])
+    names, values = metric.get()
+    record = {
+        "network": network, "batch": ZOO_BATCH, "image": image,
+        "compute_dtype": "bfloat16", "optimizer": optimizer,
+        "optimizer_params": params, "steps": len(steps),
+        "first_step_s": steps[0]["s"], "capture_step_s": steps[1]["s"],
+        "replay_step_s": replay_s, "step_ms": replay_s * 1e3,
+        "img_per_s": ZOO_BATCH / replay_s,
+        "step_s_runs": [s["s"] for s in steps],
+        "lr_by_step": [s["lr"] for s in steps],
+        "lr_in_graph": float(tr._lr),
+        "cross_entropy_by_step": [s["ce"] for s in steps],
+        "loss_fell": steps[-1]["ce"] < steps[0]["ce"],
+        "metrics": dict(zip(names, values)),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "graph_captures": tr.graph_captures,
+        "graph_replays": tr.graph_replays, "launches": launches,
+        "fit_s": fit_s}
+    del mod, tr, data, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def train_zoo(card):
+    """The image-classification zoo on the card: for each network of ZOO,
+    ``Module.fit`` at full width (zoo_fit) and one float32 step against
+    the port's CPU (zoo_step_vs_cpu).  Asserts the fused path, one
+    capture and a replay a step after it, the scheduler's lr change read
+    by the captured graph, a falling loss, finite metrics, none of the
+    port's kernels launched, and each float32 step within its
+    tolerances.  Prints step ms, img/s, capture ms and peak memory a
+    network.  Returns (launches, records)."""
+    _phase("train_zoo")
+    t_phase = time.perf_counter()
+    total = {}
+    records = []
+    for network, image, optimizer, params in ZOO:
+        fit = zoo_fit(network, image, optimizer, params)
+        check, ok = zoo_step_vs_cpu(network, image, optimizer, params)
+        fit["vs_cpu"] = check
+        fit["card"] = card
+        _emit({"train_zoo": fit})
+        print("train_zoo %s (%s, %s): step %.2f ms, %.1f img/s, capture "
+              "step %.0f ms, peak %.2f GB, loss %.3f -> %.3f, K1/B2/K2 "
+              "launches %s; float32 step vs CPU %s (grad median %.2e, max "
+              "%.2e)" % (
+                  network, optimizer, card, fit["step_ms"], fit["img_per_s"],
+                  fit["capture_step_s"] * 1e3,
+                  fit["peak_memory_bytes"] / 1e9,
+                  fit["cross_entropy_by_step"][0],
+                  fit["cross_entropy_by_step"][-1],
+                  sum(fit["launches"].values()),
+                  {k: "%.2e" % v for k, v in
+                   check["held_to_tolerance"].items()},
+                  check["grad_rel_err_median"], check["grad_rel_err_max"]),
+              flush=True)
+        records.append(fit)
+        for k, v in fit["launches"].items():
+            total[k] = total.get(k, 0) + v
+        base_lr = params.get("learning_rate", 0.01)
+        ce = fit["cross_entropy_by_step"]
+        if not ok or (fit["graph_captures"], fit["graph_replays"]) != (
+                1, ZOO_STEPS - 1) or fit["steps"] != ZOO_STEPS \
+                or not all(math.isfinite(c) for c in ce) \
+                or not fit["loss_fell"] \
+                or not all(math.isfinite(v) for v in
+                           fit["metrics"].values()) \
+                or not math.isclose(fit["lr_in_graph"], base_lr * 0.1,
+                                    rel_tol=1e-6):
+            raise AssertionError("train_zoo %s gave %s" % (network, fit))
+        expect_launches("train_zoo " + network, fit["launches"])
+    _emit({"train_zoo_s": time.perf_counter() - t_phase})
+    print("train_zoo: %d networks in %.1f s" % (
+        len(records), time.perf_counter() - t_phase), flush=True)
+    return total, records
+
+
+# ----------------------------------------------------------------------
+# optimizers: every registered optimizer, the update ops, a resume
+def _opt_mlp():
+    """examples/module/mnist_mlp.py's MLP, fc1's weight at lr_mult 0.5."""
+    data = mt.sym.Variable("data")
+    w = mt.sym.Variable("fc1_weight", lr_mult=0.5)
+    net = mt.sym.FullyConnected(data, weight=w, name="fc1", num_hidden=128)
+    net = mt.sym.Activation(net, name="relu1", act_type="relu")
+    net = mt.sym.FullyConnected(net, name="fc2", num_hidden=64)
+    net = mt.sym.Activation(net, name="relu2", act_type="relu")
+    net = mt.sym.FullyConnected(net, name="fc3", num_hidden=10)
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def _opt_data(n_batches):
+    """MLP batches and initial weights, numpy from SEED."""
+    rng = np.random.default_rng(SEED)
+    batches = [(rng.standard_normal((OPT_BATCH, 784), dtype=np.float32),
+                rng.integers(0, 10, OPT_BATCH).astype(np.float32))
+               for _ in range(n_batches)]
+    shapes, _, _ = _opt_mlp().infer_shape(data=(OPT_BATCH, 784))
+    init = {n: (rng.standard_normal(s, dtype=np.float32)
+                * np.float32(0.05))
+            for n, s in zip(_opt_mlp().list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    return batches, init
+
+
+def opt_steps(ctx, policy, name, params, batches, init):
+    """OPT_STEPS forward/backward/update steps of the MLP with optimizer
+    ``name`` on ``ctx`` under ``policy``; returns (the parameters on the
+    host, whether the fused path ran, graph captures)."""
+    mt.random.seed(SEED)
+    with _fused_policy(policy), mt.Context(ctx):
+        mod = mt.mod.Module(_opt_mlp(), context=ctx)
+        mod.bind(data_shapes=[("data", (OPT_BATCH, 784))],
+                 label_shapes=[("softmax_label", (OPT_BATCH,))])
+        mod.init_params(arg_params={n: mt.nd.array(v)
+                                    for n, v in init.items()})
+        mod.init_optimizer(optimizer=name,
+                           optimizer_params=dict(OPT_COMMON, **params))
+        for x, y in batches[:OPT_STEPS]:
+            mod.forward(mt.io.DataBatch([mt.nd.array(x)], [mt.nd.array(y)]),
+                        is_train=True)
+            mod.backward()
+            mod.update()
+    arg, _ = mod.get_params()
+    tr = mod._trainer
+    return ({n: v.data.cpu() for n, v in arg.items()}, tr is not None,
+            tr.graph_captures if tr is not None else 0)
+
+
+def _opt_ops(gen):
+    """The five update ops on the card and on the CPU, from the same
+    inputs; the largest relative error of any output."""
+    shape = (OPT_OP_SIZE,)
+    w, g = (torch.randn(shape, generator=gen, device="cuda")
+            for _ in range(2))
+    s = [torch.rand(shape, generator=gen, device="cuda") for _ in range(3)]
+    s_alex = [s[0] + s[1] ** 2, s[1], s[2]]
+    cases = [("sgd_update", [], {}),
+             ("sgd_mom_update", s[:1], {"momentum": 0.9}),
+             ("adam_update", s[:2], {"t": 3}),
+             ("rmsprop_update", s[:1], {"clip_weights": 0.5}),
+             ("rmspropalex_update", s_alex, {})]
+    errs = {}
+    for name, states, kw in cases:
+        kw = dict(kw, lr=0.01, wd=1e-3, rescale_grad=0.5, clip_gradient=1.0)
+        outs = {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            arrs = [mt.nd.NDArray(a.to(dev)) for a in [w, g] + states]
+            res = getattr(mt.nd, name)(*arrs, **kw)
+            outs[side] = [r.data.cpu() for r in (
+                res if isinstance(res, list) else [res])]
+        errs[name] = max(((a.double() - b.double()).norm()
+                          / b.double().norm()).item()
+                         for a, b in zip(outs["card"], outs["cpu"]))
+    return errs
+
+
+def _sgld_noise(seed):
+    """SGLD's update of OPT_OP_SIZE zeros by a zero gradient on the card
+    (lr 0.04): sqrt(lr) standard normal noise from the device's
+    generator."""
+    mt.random.seed(seed)
+    opt = mt.optimizer.SGLD(learning_rate=0.04)
+    w = mt.nd.NDArray(torch.zeros(OPT_OP_SIZE, device="cuda"))
+    opt.update(0, w, mt.nd.NDArray(torch.zeros(OPT_OP_SIZE, device="cuda")),
+               None)
+    return w.data.cpu()
+
+
+def opt_resume(tmp):
+    """``fit`` of the MLP on the card's fused path with centered RMSProp,
+    a checkpoint each epoch: uninterrupted; crashed inside its second
+    save (OPT_RESUME_FAULT); restarted with ``resume=True``.  Returns
+    (whether the restart ends bitwise where the uninterrupted run ends,
+    the state tree kept for fc1's weight in the last states file)."""
+    import pickle
+    batches, init = _opt_data(4)
+    x = np.concatenate([b[0] for b in batches])
+    y = np.concatenate([b[1] for b in batches])
+    opt = dict(OPT_COMMON, learning_rate=1e-3, centered=True)
+
+    def run(prefix, resume=False):
+        mt.random.seed(SEED)
+        it = mt.io.NDArrayIter(x, y, batch_size=OPT_BATCH)
+        mod = mt.mod.Module(_opt_mlp(), context=mt.gpu())
+        mod.fit(it, num_epoch=OPT_RESUME_EPOCHS, optimizer="rmsprop",
+                optimizer_params=opt,
+                arg_params={n: mt.nd.array(v) for n, v in init.items()},
+                checkpoint=mt.resilience.CheckpointManager(prefix, keep=2),
+                resume=resume)
+        assert mod._trainer is not None
+        return {n: v.data.cpu() for n, v in mod.get_params()[0].items()}
+
+    want = run(os.path.join(tmp, "full"))
+    prefix = os.path.join(tmp, "run")
+    mt.faults.configure(OPT_RESUME_FAULT)
+    crashed = False
+    try:
+        run(prefix)
+    except mt.faults.InjectedCrash:
+        crashed = True
+    finally:
+        mt.faults.clear()
+    got = run(prefix, resume=True)
+    ck = mt.resilience.CheckpointManager(prefix).latest()
+    with open(ck.states_path, "rb") as f:
+        _, state, _, _ = pickle.loads(f.read())
+    tree = [tuple(t.shape) for t in state["fc1_weight"]]
+    same = sorted(got) == sorted(want) and all(
+        torch.equal(got[n], want[n]) for n in want)
+    return crashed, same, ck.epoch, tree
+
+
+def optimizers(card):
+    """Every registered optimizer on the card against the port's CPU (the
+    MLP, OPT_STEPS classic and fused steps; SGLD on the classic path,
+    held by its noise's moments and determinism per seed), the five
+    update ops against their CPU results, and the bitwise resume with
+    centered RMSProp.  Returns (launches, record)."""
+    import shutil
+    _phase("optimizers")
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    batches, init = _opt_data(OPT_STEPS)
+    rows = []
+    for name, params in OPTIMIZERS:
+        row = {"optimizer": name, "params": params}
+        for path, card_policy, cpu_policy in (("classic", "never", "never"),
+                                              ("fused", "auto", "always")):
+            if name == "sgld" and path == "fused":
+                continue
+            got, fused, captures = opt_steps(mt.gpu(), card_policy, name,
+                                             params, batches, init)
+            # SGLD's noise: the card's generator against itself (the
+            # CPU's draws other numbers)
+            want, _, _ = opt_steps(
+                mt.gpu() if name == "sgld" else mt.cpu(),
+                card_policy if name == "sgld" else cpu_policy, name, params,
+                batches, init)
+            rel = _rel_norms(got, want)
+            moved = min(((got[n] - torch.from_numpy(init[n])).norm()
+                         / torch.from_numpy(init[n]).norm()).item()
+                        for n in init)
+            row[path] = {"rel_err_max": max(rel.values()),
+                         "fused": fused, "graph_captures": captures,
+                         "moved_min": moved}
+        rows.append(row)
+    a, b, c = _sgld_noise(5), _sgld_noise(5), _sgld_noise(6)
+    sgld = {"same_seed_bitwise": bool(torch.equal(a, b)),
+            "other_seed_differs": not bool(torch.equal(a, c)),
+            "mean": a.mean().item(), "std": a.std().item(),
+            "expected_std": 0.2}
+    op_errs = _opt_ops(torch.Generator(device="cuda").manual_seed(SEED))
+    tmp = tempfile.mkdtemp(prefix="mxtpu_opt_resume_")
+    try:
+        crashed, same, epoch, tree = opt_resume(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = launch_counts()
+    record = {"optimizers": rows, "sgld_noise": sgld,
+              "update_ops_rel_err": op_errs, "tolerance": OPT_TOL,
+              "op_tolerance": OPT_OP_TOL,
+              "resume": {"crashed": crashed, "bitwise": same,
+                         "latest_epoch": epoch, "fc1_weight_state": tree},
+              "launches": counts, "phase_s": time.perf_counter() - t_phase,
+              "card": card}
+    _emit(record)
+    print("optimizers: %d runs, card vs CPU worst %.2e; update ops worst "
+          "%.2e; SGLD std %.4f (want 0.2), bitwise per seed %s; centered "
+          "RMSProp resume bitwise %s, state %s; %.1f s" % (
+              sum(1 for r in rows for p in ("classic", "fused") if p in r),
+              max(r[p]["rel_err_max"] for r in rows
+                  for p in ("classic", "fused") if p in r),
+              max(op_errs.values()), sgld["std"],
+              sgld["same_seed_bitwise"], same, tree, record["phase_s"]),
+          flush=True)
+    bad = [(r["optimizer"], p) for r in rows for p in ("classic", "fused")
+           if p in r and not (
+               r[p]["rel_err_max"] <= (0 if r["optimizer"] == "sgld"
+                                       else OPT_TOL)
+               and r[p]["moved_min"] > 0
+               and r[p]["fused"] == (p == "fused")
+               and r[p]["graph_captures"] == (1 if p == "fused" else 0))]
+    if bad or not (sgld["same_seed_bitwise"] and sgld["other_seed_differs"]
+                   and abs(sgld["mean"]) < 0.01
+                   and abs(sgld["std"] - 0.2) < 0.002) \
+            or not all(e <= OPT_OP_TOL for e in op_errs.values()) \
+            or not (crashed and same and epoch == OPT_RESUME_EPOCHS
+                    and tree == [(128, 784)] * 3):
+        raise AssertionError("optimizers gave %s (failed: %s)"
+                             % (record, bad))
+    expect_launches("optimizers", counts)
     return counts, record
 
 
@@ -4213,6 +4764,11 @@ def main():
     paths["train_reshape"], _ = train_reshape(card)
     paths["train_monitor"], _ = train_monitor(card)
     paths["module_family"], _ = module_family(card)
+    # the image-classification zoo and the optimizers run none of the
+    # port's kernels either: convolutions, LRN, pooling, BatchNorm and the
+    # updates are PyTorch ops, as the JAX package leaves them to XLA
+    paths["train_zoo"], _ = train_zoo(card)
+    paths["optimizers"], _ = optimizers(card)
     records = times(latencies)
     gelu = rtc_times()
     # the paths that replay a captured graph: what one replay launched (a

@@ -3,9 +3,10 @@
 The reference surface (``python/mxnet/initializer.py:14-500``):
 :class:`InitDesc`, :class:`Initializer` with its default rules by name
 suffix (``*_weight`` by the subclass's rule, ``*_bias``/``*_beta`` zero,
-``*_gamma`` one, moving statistics), the :class:`Load` and :class:`Mixed`
-combinators, and ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal``,
-``Xavier`` and ``LSTMBias``.  Values are drawn on the host from
+``*_gamma`` one, moving statistics), the :class:`Load` and
+:class:`Mixed` combinators, and ``Zero``, ``One``, ``Constant``,
+``Uniform``, ``Normal``, ``Orthogonal``, ``Xavier``, ``MSRAPrelu``,
+``Bilinear`` and ``LSTMBias``. Values are drawn on the host from
 :func:`mxnet_tpu_torch.random.np_rng`, as the JAX package draws them, so
 one seed gives the same weights in both packages, then written into the
 array on its device.
@@ -234,6 +235,28 @@ class Normal(Initializer):
 
 
 @register
+class Orthogonal(Initializer):
+    """A scaled orthogonal matrix (the SVD factor of a random one whose
+    shape is the weight's, flattened to ``(out, rest)``)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _random.np_rng().uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = _random.np_rng().normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * res).reshape(arr.shape)
+
+
+@register
 class Xavier(Initializer):
     def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
         super().__init__(rnd_type=rnd_type, factor_type=factor_type,
@@ -264,6 +287,28 @@ class Xavier(Initializer):
         else:
             raise ValueError("rnd_type must be uniform/gaussian, got %r"
                              % self.rnd_type)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He initialisation for PReLU slopes: Xavier gaussian at magnitude
+    ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel for every weight."""
+
+    def __init__(self):
+        super().__init__()
+
+    def _init_weight(self, _, arr):
+        self._init_bilinear(_, arr)
 
 
 @register

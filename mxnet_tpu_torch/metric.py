@@ -1,24 +1,29 @@
 """Evaluation metrics (``mxnet_tpu/metric.py``).
 
 The reference's surface (``python/mxnet/metric.py``): :class:`EvalMetric`,
-:class:`CompositeEvalMetric`, :class:`Accuracy`, :class:`Perplexity`,
-:class:`CrossEntropy` and :func:`create`.  As in the JAX package, each
-update computes its batch statistic ``(sum, count)`` where the
-predictions lie and folds it into accumulators there, so a training step
-on the card never waits for the host; the one transfer to the host is in
-:meth:`EvalMetric.get` (or a read of ``sum_metric``/``num_inst``).
+:class:`CompositeEvalMetric`, :class:`Accuracy`, :class:`TopKAccuracy`,
+:class:`F1`, :class:`Perplexity`, :class:`MAE`, :class:`MSE`,
+:class:`RMSE`, :class:`CrossEntropy`, :class:`CustomMetric`, :func:`np`
+and :func:`create`.  As in the JAX package, each update computes its
+batch statistic ``(sum, count)`` where the predictions lie and folds it
+into accumulators there, so a training step on the card never waits for
+the host; the one transfer to the host is in :meth:`EvalMetric.get` (or
+a read of ``sum_metric``/``num_inst``).  ``CustomMetric`` runs the
+user's numpy function, so it reads every batch back to the host.
 """
 from __future__ import annotations
 
 import math
 
-import numpy as np
+import numpy as onp
 import torch
 
+from .base import MXNetError
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "Perplexity",
-           "CrossEntropy", "create", "check_label_shapes"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "CustomMetric", "np", "create", "check_label_shapes"]
 
 
 def check_label_shapes(labels, preds, shape=0):
@@ -34,7 +39,7 @@ def _tensor(x, device=None):
     """A metric input as a tensor (on ``device`` when given), no copy
     where it already is one there."""
     t = x.data if isinstance(x, NDArray) else \
-        x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        x if isinstance(x, torch.Tensor) else torch.as_tensor(onp.asarray(x))
     return t.detach() if device is None else t.detach().to(device)
 
 
@@ -140,6 +145,49 @@ class Accuracy(EvalMetric):
         return hits.sum().float(), hits.numel()
 
 
+class TopKAccuracy(EvalMetric):
+    """Whether the label is among the ``top_k`` highest-scoring classes.
+    Only membership counts: where scores tie at the k-th place,
+    ``torch.topk`` may keep another of the tied classes than the JAX
+    package's ``lax.top_k`` (the lowest index)."""
+
+    def __init__(self, **kwargs):
+        top_k = kwargs.get("top_k", 1)
+        if top_k <= 1:
+            raise MXNetError("Please use Accuracy if top_k is no more than 1")
+        self.top_k = top_k
+        super().__init__("top_k_accuracy_%d" % top_k)
+
+    def _stat(self, label, pred):
+        if pred.dim() == 1:
+            hits = pred.int() == label.int()
+            return hits.sum().float(), label.shape[0]
+        k = min(self.top_k, pred.shape[1])
+        top = pred.topk(k, dim=1).indices
+        hits = (top == label.int()[:, None]).any(dim=1)
+        return hits.sum().float(), label.shape[0]
+
+
+class F1(EvalMetric):
+    """Binary F1 of the argmax prediction, scored per batch and averaged
+    over batches, as the reference does; labels are 0 or 1."""
+
+    def __init__(self):
+        super().__init__("f1")
+
+    def _stat(self, label, pred):
+        y = pred.argmax(dim=1).int()
+        t = label.int().ravel()
+        tp = ((y == 1) & (t == 1)).sum().float()
+        fp = ((y == 1) & (t == 0)).sum().float()
+        fn = ((y == 0) & (t == 1)).sum().float()
+        precision = torch.where(tp + fp > 0, tp / (tp + fp), 0.0)
+        recall = torch.where(tp + fn > 0, tp / (tp + fn), 0.0)
+        f1 = torch.where(precision + recall > 0,
+                         2 * precision * recall / (precision + recall), 0.0)
+        return f1, 1
+
+
 def _pick(pred, lab):
     """``pred[i, lab[i]]`` per row, a negative label counting from the
     last class as the JAX package's ``take_along_axis`` does (so an
@@ -179,6 +227,40 @@ class Perplexity(EvalMetric):
         return self.name, math.exp(total / count)
 
 
+class _Regression(EvalMetric):
+    """A per-batch regression score, averaged over batches; a 1-D label
+    is a column."""
+
+    def _stat(self, label, pred):
+        if label.dim() == 1:
+            label = label[:, None]
+        return self._score(label.to(pred.dtype), pred).float(), 1
+
+
+class MAE(_Regression):
+    def __init__(self):
+        super().__init__("mae")
+
+    def _score(self, label, pred):
+        return (label - pred).abs().mean()
+
+
+class MSE(_Regression):
+    def __init__(self):
+        super().__init__("mse")
+
+    def _score(self, label, pred):
+        return (label - pred).square().mean()
+
+
+class RMSE(_Regression):
+    def __init__(self):
+        super().__init__("rmse")
+
+    def _score(self, label, pred):
+        return (label - pred).square().mean().sqrt()
+
+
 class CrossEntropy(EvalMetric):
     """Mean negative log probability of the target."""
 
@@ -192,15 +274,63 @@ class CrossEntropy(EvalMetric):
         return -(picked + self.eps).log().sum().float(), lab.numel()
 
 
+def _host(x):
+    """A metric input as a numpy array on the host (bfloat16 widened to
+    float32)."""
+    t = _tensor(x)
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class CustomMetric(EvalMetric):
+    """A metric from the user's ``feval(label, pred)`` on numpy arrays,
+    returning a value or ``(sum, count)``; the one metric that reads
+    every batch back to the host."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:
+                name = "custom(%s)" % name
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        labels, preds = _as_list(labels), _as_list(preds)
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            result = self._feval(_host(label), _host(pred))
+            s, n = result if isinstance(result, tuple) else (result, 1)
+            self._host[0] += s
+            self._host[1] += n
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A :class:`CustomMetric` of a numpy function, named after it."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
 _REGISTRY = {
     "acc": Accuracy, "accuracy": Accuracy,
     "ce": CrossEntropy, "cross-entropy": CrossEntropy,
-    "perplexity": Perplexity,
+    "f1": F1, "mae": MAE, "mse": MSE, "rmse": RMSE,
+    "top_k_accuracy": TopKAccuracy, "perplexity": Perplexity,
 }
 
 
 def create(metric, **kwargs):
-    """A metric from a name, an instance, or a list of either."""
+    """A metric from a name, a callable ``feval(label, pred)`` (a
+    :class:`CustomMetric`), an instance, or a list of these."""
+    if callable(metric):
+        return CustomMetric(metric)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -209,8 +339,10 @@ def create(metric, **kwargs):
             out.add(create(m, **kwargs))
         return out
     if not isinstance(metric, str):
-        raise TypeError("metric should be an EvalMetric, a str or a list")
+        raise TypeError("metric should be an EvalMetric, a str, a "
+                        "callable or a list")
     try:
         return _REGISTRY[metric.lower()](**kwargs)
     except KeyError:
-        raise ValueError("Metric must be one of %s" % sorted(_REGISTRY))
+        raise ValueError("Metric must be callable or one of %s"
+                         % sorted(_REGISTRY))

@@ -8,3 +8,4 @@ from . import init_ops  # noqa: F401
 from . import nn  # noqa: F401
 from . import attention  # noqa: F401
 from . import rnn_op  # noqa: F401
+from . import optimizer_op  # noqa: F401

@@ -19,8 +19,10 @@ _SCALAR = (Param("scalar", float, required=True),)
 
 def _scalar_as(a, s):
     # the scalar in the array's dtype, as the JAX package casts it: an
-    # int array stays int under a float scalar
-    return torch.as_tensor(s, dtype=a.dtype, device=a.device)
+    # int array stays int under a float scalar.  A fill on the array's
+    # device: a tensor made from host data would be a copy from the
+    # host, which a CUDA graph's capture refuses
+    return torch.full((), s, dtype=a.dtype, device=a.device)
 
 
 def _reg_binary_scalar(name, fn):

@@ -1,10 +1,10 @@
 """Neural-network layer ops (``mxnet_tpu/op/nn.py``): the layers the
-transformer LM and the convnets (ResNet, LeNet) run, forward and, through
-torch autograd, backward.  Matrix products and convolutions go to
-``torch`` (cuBLAS and cuDNN on the card), as the JAX package leaves them
-to XLA; ``SoftmaxOutput`` injects the reference's gradient through a
-``torch.autograd.Function``, and BatchNorm's training backward is the
-JAX package's closed form (``op/bytediet.py``)."""
+transformer LM and the convnets (the image-classification zoo) run,
+forward and, through torch autograd, backward. Matrix products and
+convolutions go to ``torch`` (cuBLAS and cuDNN on the card), as the JAX
+package leaves them to XLA; ``SoftmaxOutput`` injects the reference's
+gradient through a ``torch.autograd.Function``, and BatchNorm's training
+backward is the JAX package's closed form (``op/bytediet.py``)."""
 from __future__ import annotations
 
 import contextlib
@@ -340,6 +340,32 @@ def _ln_infer_shape(p, in_shapes):
         return None
     n = dshape[p["axis"]]
     return [tuple(dshape), (n,), (n,)], [tuple(dshape)], []
+
+
+# ----------------------------------------------------------------------
+# LRN
+@register("LRN", params_spec=(Param("alpha", float, 1e-4),
+                              Param("beta", float, 0.75),
+                              Param("knorm", float, 2.0),
+                              Param("nsize", int, required=True)),
+          hint="lrn")
+def _lrn(p, c, a):
+    """Local response normalisation across channels (axis 1), the JAX
+    op's formula: the squares padded by ``nsize // 2`` zeros on both
+    sides of the channel axis, a window of ``nsize`` shifted slices of
+    ``C`` channels summed (for an even ``nsize`` too), then
+    ``a / (knorm + alpha / nsize * sum) ** beta``.  Autograd gives the
+    backward."""
+    nsize = p["nsize"]
+    half = nsize // 2
+    C = a.shape[1]
+    sq = a * a
+    sq_pad = F.pad(sq, [0, 0] * (a.ndim - 2) + [half, half])
+    window = sq_pad[:, 0:C]
+    for i in range(1, nsize):
+        window = window + sq_pad[:, i:i + C]
+    scale = p["knorm"] + (p["alpha"] / nsize) * window
+    return a / scale.pow(p["beta"])
 
 
 # ----------------------------------------------------------------------

@@ -4,23 +4,24 @@ The class surface of the reference's optimizer module
 (``python/mxnet/optimizer.py``): the :class:`Optimizer` base with its
 registry, update counting, ``rescale_grad``, ``wd``, ``clip_gradient``,
 lr/wd multipliers (from the symbol's ``__lr_mult__``/``__wd_mult__``
-attributes and by name) and ``lr_scheduler``; :class:`SGD` with momentum
-and :class:`Adam`; :func:`create`, and :func:`get_updater`, whose states
+attributes and by name) and ``lr_scheduler``; SGD (momentum), ccSGD,
+NAG, SGLD, DCASGD, Adam, AdaGrad, RMSProp (plain and centered), AdaDelta,
+Ftrl and Test; :func:`create`, and :func:`get_updater`, whose states
 round-trip through ``get_states``/``set_states``.
 
-Each update is a few plain torch operations in place on the weight and
-its state, on the device they lie on (the card in training); the JAX
-package jits the same rule per weight, and no Pallas kernel exists for
-it.  The arithmetic is the JAX package's ``_rule`` of each class, in
-the same order.
-
-Each class also has the JAX package's pure form of its math:
-``_state(w)`` makes a weight's state and ``_rule(w, g, state, lr, wd,
-t)`` returns the new weight and state as new tensors, touching none of
-its inputs.  ``lr`` and ``t`` may be 0-d device tensors, so a step
-captured in a CUDA graph reads them at every replay instead of baking
-them in.  The fused step (:func:`mxnet_tpu_torch.parallel.optim.
-make_update_fn`) applies that rule to every parameter.
+Each class has the JAX package's pure form of its math: ``_state(w)``
+makes a weight's state and ``_rule(w, g, state, lr, wd, t)`` returns the
+new weight and state as new tensors, touching none of its inputs (SGLD's
+takes the device's ``torch.Generator`` too).  ``lr`` and ``t`` may be
+0-d device tensors, so a step captured in a CUDA graph reads them at
+every replay instead of baking them in.  The fused step
+(:func:`mxnet_tpu_torch.parallel.optim.make_update_fn`) applies that
+rule to every parameter.  The classic path's :meth:`Optimizer.update`
+runs the same rule on one weight's tensors and copies the results into
+the weight and its state, on the device they lie on, as the JAX
+package's jitted update does.  SGD and Adam keep an in-place update of
+their own beside their rule (the same operations in the same order;
+their bias correction and scalars round in float64 there).
 """
 from __future__ import annotations
 
@@ -32,9 +33,26 @@ import torch
 
 from .base import MXNetError
 from .ndarray import NDArray
+from . import random as _random
 
-__all__ = ["Optimizer", "SGD", "Adam", "Test", "Updater", "create",
-           "get_updater", "register"]
+__all__ = ["Optimizer", "SGD", "ccSGD", "NAG", "SGLD", "DCASGD", "Adam",
+           "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "Test", "Updater",
+           "create", "get_updater", "register"]
+
+
+def _map(fn, tree):
+    """``fn`` over the leaves of a None/leaf/tuple state tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    out = []
+    _map(out.append, tree)
+    return out
 
 
 class Optimizer(object):
@@ -95,6 +113,9 @@ class Optimizer(object):
                     table[arg] = float(val)
         return table
 
+    def set_lr_scale(self, args_lrscale):
+        raise DeprecationWarning("Use set_lr_mult instead.")
+
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = self._attr_table("__lr_mult__")
         self.lr_mult.update(args_lr_mult)
@@ -151,21 +172,28 @@ class Optimizer(object):
         state, the learning rate, the weight decay and the step ``t``."""
         raise NotImplementedError()
 
-    # -- per-rule -------------------------------------------------------
+    # -- per-weight (the classic path) -----------------------------------
     def create_state(self, index, weight):
         """Per-weight state as (possibly nested) NDArrays, or None."""
-        return None
+        return _map(NDArray, self._state(weight.data))
 
+    @torch.no_grad()
     def update(self, index, weight, grad, state):
-        """Update ``weight`` (and ``state``) in place from ``grad``."""
-        raise NotImplementedError()
+        """Update ``weight`` (and ``state``) in place from ``grad``: the
+        rule on their tensors, its results copied back (the state's
+        first, so a state that snapshots the weight reads the old one)."""
+        lr, wd, t = self._step(index)
+        noise = (_random.generator(weight.data.device),) \
+            if self.has_noise else ()
+        new_w, new_state = self._rule(
+            weight.data, grad.data, _map(lambda a: a.data, state), lr, wd, t,
+            *noise)
+        for holder, value in zip(_leaves(state), _leaves(new_state)):
+            holder.data.copy_(value)
+        weight.data.copy_(new_w)
 
 
 register = Optimizer.register
-
-
-def _zeros_like(weight):
-    return NDArray(torch.zeros_like(weight.data))
 
 
 @register
@@ -177,9 +205,6 @@ class SGD(Optimizer):
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
-
-    def create_state(self, index, weight):
-        return _zeros_like(weight) if self.momentum else None
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):
@@ -213,9 +238,6 @@ class Adam(Optimizer):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
-    def create_state(self, index, weight):
-        return (_zeros_like(weight), _zeros_like(weight))
-
     @torch.no_grad()
     def update(self, index, weight, grad, state):
         lr, wd, t = self._step(index)
@@ -241,6 +263,174 @@ class Adam(Optimizer):
         return w - step * mean / (var.sqrt() + self.epsilon), (mean, var)
 
 
+@register
+class ccSGD(SGD):  # noqa: N801 - the reference's spelling
+    """Deprecated alias of SGD: SGD's update and rule."""
+
+
+@register
+class NAG(SGD):
+    """Nesterov-accelerated SGD: ``mom = momentum * mom + g; w -= lr * (g
+    + momentum * mom)``.  Its classic update is the base's run of this
+    rule, not SGD's in-place math."""
+
+    update = Optimizer.update
+
+    def _rule(self, w, g, mom, lr, wd, t):
+        g = self._prep_grad(g, w, wd)
+        if mom is None:
+            return w - lr * g, None
+        mom = self.momentum * mom + g
+        return w - lr * (g + self.momentum * mom), mom
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half an SGD step plus
+    ``sqrt(lr)`` Gaussian noise from the weight's device generator (the
+    JAX package's threefry chain draws other numbers; ROADMAP §C).  No
+    fused rule: Module trains it on the classic path."""
+
+    has_noise = True
+
+    def _rule(self, w, g, state, lr, wd, t, generator):
+        g = self._prep_grad(g, w, wd)
+        noise = torch.randn(w.shape, generator=generator, dtype=w.dtype,
+                            device=w.device)
+        return w - 0.5 * lr * g + lr ** 0.5 * noise, state
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated async SGD: the gradient corrected by a curvature
+    term against the weight's snapshot from the last update.  The state
+    is ``(momentum or None, snapshot)``; the snapshot is a tensor of its
+    own (a clone), never the weight's storage, or a write of the new
+    weight would move it too."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def _state(self, w):
+        mom = torch.zeros_like(w) if self.momentum else None
+        return (mom, w.clone())
+
+    def _rule(self, w, g, state, lr, wd, t):
+        mom, snapshot = state
+        g = self._prep_grad(g, w, 0.0)
+        comp = g + wd * w + self.lamda * g * g * (w - snapshot)
+        if mom is None:
+            step = -lr * comp
+        else:
+            mom = self.momentum * mom - lr * comp
+            step = mom
+        return w + step, (mom, w.clone())
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad; the weight decay applies outside the adaptive scaling, as
+    the reference's does."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def _state(self, w):
+        return torch.zeros_like(w)
+
+    def _rule(self, w, g, hist, lr, wd, t):
+        g = self._prep_grad(g, w, 0.0)
+        hist = hist + g.square()
+        scaled = g * torch.rsqrt(hist + self.float_stable_eps)
+        return w - lr * (scaled + wd * w), hist
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp: Tieleman's (state ``(n,)``) or, with ``centered``,
+    Graves' (state ``(n, g-bar, delta)``); ``clip_weights > 0`` clips the
+    new weight."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+        self.clip_weights = clip_weights
+
+    def _state(self, w):
+        n = 3 if self.centered else 1
+        return tuple(torch.zeros_like(w) for _ in range(n))
+
+    def _rule(self, w, g, state, lr, wd, t):
+        g = self._prep_grad(g, w, wd)
+        if not self.centered:
+            (n,) = state
+            n = (1 - self.gamma1) * g.square() + self.gamma1 * n
+            w = w - lr * g / torch.sqrt(n + self.epsilon)
+            state = (n,)
+        else:
+            n, gbar, delta = state
+            n = (1 - self.gamma1) * g.square() + self.gamma1 * n
+            gbar = (1 - self.gamma1) * g + self.gamma1 * gbar
+            delta = self.gamma2 * delta - \
+                lr * g * torch.rsqrt(n - gbar.square() + self.epsilon)
+            w = w + delta
+            state = (n, gbar, delta)
+        if self.clip_weights is not None and self.clip_weights > 0:
+            w = w.clamp(-self.clip_weights, self.clip_weights)
+        return w, state
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: unit-corrected steps from running averages of the
+    squared gradient and the squared step."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def _state(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _rule(self, w, g, state, lr, wd, t):
+        acc_g, acc_d = state
+        g = self._prep_grad(g, w, 0.0)
+        acc_g = self.rho * acc_g + (1 - self.rho) * g.square()
+        step = torch.sqrt(acc_d + self.epsilon) * \
+            torch.rsqrt(acc_g + self.epsilon) * g
+        acc_d = self.rho * acc_d + (1 - self.rho) * step.square()
+        return w - step - wd * w, (acc_g, acc_d)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal with L1 shrinkage ``lamda1``; state ``(z, n)``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def _state(self, w):
+        return (torch.zeros_like(w), torch.zeros_like(w))
+
+    def _rule(self, w, g, state, lr, wd, t):
+        z, n = state
+        g = self._prep_grad(g, w, 0.0)
+        z = z + g - (torch.sqrt(n + g.square()) - torch.sqrt(n)) * w / lr
+        n = n + g.square()
+        shrunk = (torch.sign(z) * self.lamda1 - z) \
+            / ((self.beta + torch.sqrt(n)) / lr + wd)
+        w = torch.where(z.abs() > self.lamda1, shrunk, 0.0).to(w.dtype)
+        return w, (z, n)
+
+
 create = Optimizer.create_optimizer
 
 
@@ -248,9 +438,6 @@ create = Optimizer.create_optimizer
 class Test(Optimizer):
     """The reference's deterministic test rule for the KVStore tests:
     ``w += rescale_grad * g``, the state mirroring the weight."""
-
-    def create_state(self, index, weight):
-        return _zeros_like(weight)
 
     @torch.no_grad()
     def update(self, index, weight, grad, state):
@@ -268,21 +455,13 @@ class Test(Optimizer):
 
 def _to_device(state, device):
     """A state with its arrays moved to ``device``."""
-    if isinstance(state, NDArray):
-        return state if state.data.device == device \
-            else NDArray(state.data.to(device))
-    if isinstance(state, (tuple, list)):
-        return type(state)(_to_device(s, device) for s in state)
-    return state
+    return _map(lambda a: a if a.data.device == device
+                else NDArray(a.data.to(device)), state)
 
 
 def _is_state(state):
     """Whether ``state`` is made of the port's NDArrays (or None)."""
-    if state is None or isinstance(state, NDArray):
-        return True
-    if isinstance(state, (tuple, list)):
-        return all(_is_state(s) for s in state)
-    return False
+    return all(isinstance(a, NDArray) for a in _leaves(state))
 
 
 class Updater(object):

@@ -110,6 +110,19 @@ def _leaves(tree):
     return out
 
 
+def _structure(tree):
+    """A tree's shape without its leaves: where the Nones are, each
+    tuple's length, each dict's keys (an optimizer state: ``None``, a
+    tensor, a 1-, 2- or 3-tuple, ``(None, tensor)``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return tuple((k, _structure(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_structure(t) for t in tree)
+    return "leaf"
+
+
 @contextlib.contextmanager
 def _float32_sums():
     """cuBLAS sums bfloat16 and float16 products in float32 inside this
@@ -762,6 +775,14 @@ class Trainer:
                              "trains %s" % (sorted(state) if isinstance(
                                  state, dict) else type(state).__name__,
                                  sorted(self.opt_state)))
+        for n in sorted(state):
+            if _structure(state[n]) != _structure(self.opt_state[n]):
+                raise MXNetError(
+                    "optimizer state blob holds %s's state as %s, this "
+                    "trainer's %s keeps %s" % (
+                        n, _structure(state[n]),
+                        type(self.optimizer).__name__,
+                        _structure(self.opt_state[n])))
         for cur, new in zip(_leaves(self.opt_state), _leaves(state)):
             if not isinstance(new, torch.Tensor):
                 raise MXNetError(
