@@ -149,7 +149,23 @@ fails:
    determinism per seed), the five update ops against their CPU results,
    and a ``fit(checkpoint=, resume=True)`` with centered RMSProp crashed
    inside a save and resumed, bitwise the uninterrupted run;
-20. times: each kernel, its plain version and the PyTorch library call
+20. train_fcn: FCN-8s (upstream example/fcn-xs) at VGG-16's widths, 21
+   classes, batch 1 of 500 x 500 with a label border of 255 to ignore,
+   through ``Module.fit`` (SGD momentum 0.99, wd 5e-4, Bilinear
+   Deconvolutions, Xavier elsewhere) for 8 steps of one batch in float32
+   and in bfloat16: one capture and a replay a step, a falling float32
+   loss, none of the port's kernels; every Deconvolution and Crop output
+   on the card; step ms, img/s, capture ms, peak memory and a replayed
+   step's device time by kernel group; one float32 step at 64 x 64 held
+   against the CPU;
+21. loss_examples: the six loss-layer examples (fcn-xs, autoencoder,
+   svm_mnist, nce-loss, recommenders, dec) at their own sizes on the card
+   and on the port's CPU, on the classic path, each passing its own
+   assert; each also on the card's fused path, its score reported;
+22. op_sweep_card: every case of ``tests/test_op_sweep.py``'s table whose
+   op the port registers, forward and backward on the card against the
+   CPU within the case's tolerance;
+23. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
@@ -392,6 +408,36 @@ OPT_TOL, OPT_OP_TOL = 1e-5, 1e-6
 # OPT_RESUME_EPOCHS epochs of 4 batches, a checkpoint each, the run
 # crashed (in process) inside its second save
 OPT_RESUME_EPOCHS, OPT_RESUME_FAULT = 4, "crash@ckpt_write:save=2:soft"
+# train_fcn: FCN-8s (upstream example/fcn-xs: symbol_fcnxs.py's
+# get_fcn8s_symbol, fcn_xs.py's training) on VGG-16 at full width, 21
+# PASCAL VOC classes, NCHW, batch 1 of 3 x 500 x 500, ignore label 255,
+# SGD with momentum 0.99 and wd 5e-4 (fcn_xs.py), Mixed: Bilinear for the
+# three Deconvolutions, Xavier (the zoo's) for the rest; FCN_STEPS steps
+# of one synthetic batch through Module.fit, float32, and beside it the
+# same in bfloat16.  fcn_xs.py's lr is 1e-10 (its loss is summed over
+# 250,000 pixels); FCN_LR is the largest decade at or below it at which
+# the float32 loss fell at every step: at 1e-10 and 1e-11 it fell over
+# the run but rose on the way, at 1e-12 it fell every step (measured on
+# an H100, PERF.md).  In bfloat16 no lr from 1e-4 to 1e-14 made it fall:
+# a weight of the Bilinear kernels (up to 0.88) moves only by its
+# bfloat16 step, 2^-8 of it, and that step already overshoots
+FCN_CLASSES, FCN_IMAGE, FCN_STEPS, FCN_IGNORE = 21, 500, 8, 255
+FCN_LR = 1e-12
+FCN_SGD = {"momentum": 0.99, "wd": 5e-4}
+FCN_INIT = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
+FCN_BORDER = 12                  # the label's ignored border, in pixels
+# beside it one float32 step (TF32 off, Dropout at p = 0) at 1 x 3 x
+# FCN_CHECK_IMAGE^2, the card against the port's CPU, relative norms: the
+# step's output, the score heads' and bigscore's gradients and every
+# weight after the update to FCN_TOL
+FCN_CHECK_IMAGE, FCN_TOL = 64, 1e-4
+# loss_examples: the six loss-layer examples at their own sizes on the
+# card against the port's CPU on the classic path, each run from
+# mt.random.seed(SEED): each example's own end-of-run assert on both,
+# and the largest relative norm between the two runs' parameters to
+# EXAMPLE_PARAM_TOL (measured on an H100: at most 8.3e-7, fcn-xs's
+# conv1_weight after 48 Adam steps; the tolerance 12 times that)
+EXAMPLE_PARAM_TOL = 1e-5
 # serve_server: the JAX package's documented serving cell
 # (docs/how_to/serving.md:33-45, tools/serve_bench.py:131-142): buckets,
 # the request rows mix (serve_bench's default), ResNet-50's image side,
@@ -4411,6 +4457,986 @@ def optimizers(card):
 
 
 # ----------------------------------------------------------------------
+# train_fcn: FCN-8s semantic segmentation (Deconvolution, Crop, the
+# per-pixel softmax with an ignore label) through Module.fit
+def fcn8s_symbol(num_classes=FCN_CLASSES, widths=(64, 128, 256, 512, 512),
+                 fc=4096, dropout=0.5):
+    """FCN-8s from ``mt.sym`` (upstream ``symbol_fcnxs.py``
+    ``get_fcn8s_symbol``): VGG-16 with ``pad=(100, 100)`` on conv1_1, fc6
+    a 7x7 and fc7 a 1x1 convolution of ``fc``, a 1x1 score head, three
+    Deconvolutions (4x4/2, 4x4/2, 16x16/8, ``adj = stride - 1``, no
+    bias), Crop at (5, 5), (9, 9) and (31, 31) against score_pool4,
+    score_pool3 and data, and SoftmaxOutput over every pixel ignoring
+    label FCN_IGNORE."""
+    sym = mt.sym
+    data = sym.Variable("data")
+    x = data
+    pools = []
+    for stage, (width, depth) in enumerate(zip(widths, (2, 2, 3, 3, 3))):
+        for i in range(depth):
+            name = "conv%d_%d" % (stage + 1, i + 1)
+            pad = (100, 100) if name == "conv1_1" else (1, 1)
+            x = sym.Convolution(x, kernel=(3, 3), pad=pad, num_filter=width,
+                                workspace=1024, name=name)
+            x = sym.Activation(x, act_type="relu",
+                               name="relu%d_%d" % (stage + 1, i + 1))
+        x = sym.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
+                        name="pool%d" % (stage + 1))
+        pools.append(x)
+    pool3, pool4, pool5 = pools[2:]
+    x = sym.Convolution(pool5, kernel=(7, 7), num_filter=fc, name="fc6")
+    x = sym.Activation(x, act_type="relu", name="relu6")
+    x = sym.Dropout(x, p=dropout, name="drop6")
+    x = sym.Convolution(x, kernel=(1, 1), num_filter=fc, name="fc7")
+    x = sym.Activation(x, act_type="relu", name="relu7")
+    x = sym.Dropout(x, p=dropout, name="drop7")
+    score = sym.Convolution(x, kernel=(1, 1), num_filter=num_classes,
+                            name="score")
+    score2 = sym.Deconvolution(score, kernel=(4, 4), stride=(2, 2),
+                               adj=(1, 1), num_filter=num_classes,
+                               no_bias=True, name="score2")
+    score_pool4 = sym.Convolution(pool4, kernel=(1, 1),
+                                  num_filter=num_classes, name="score_pool4")
+    score_pool4c = sym.Crop(score_pool4, score2, offset=(5, 5),
+                            name="score_pool4c")
+    score4 = sym.Deconvolution(score2 + score_pool4c, kernel=(4, 4),
+                               stride=(2, 2), adj=(1, 1),
+                               num_filter=num_classes, no_bias=True,
+                               name="score4")
+    score_pool3 = sym.Convolution(pool3, kernel=(1, 1),
+                                  num_filter=num_classes, name="score_pool3")
+    score_pool3c = sym.Crop(score_pool3, score4, offset=(9, 9),
+                            name="score_pool3c")
+    bigscore = sym.Deconvolution(score4 + score_pool3c, kernel=(16, 16),
+                                 stride=(8, 8), adj=(7, 7),
+                                 num_filter=num_classes, no_bias=True,
+                                 name="bigscore")
+    upscore = sym.Crop(bigscore, data, offset=(31, 31), name="upscore")
+    return sym.SoftmaxOutput(upscore, multi_output=True, use_ignore=True,
+                             ignore_label=FCN_IGNORE, name="softmax")
+
+
+FCN_DECONV_CROP = ("score2", "score4", "bigscore", "score_pool4c",
+                   "score_pool3c", "upscore")
+
+
+def fcn_batch(image, seed=SEED, border=FCN_BORDER):
+    """One synthetic segmentation batch from ``seed``: labels of class 0
+    with five rectangles of random classes and a border of FCN_IGNORE;
+    images N(0, 1) noise plus a brightness a class in each channel."""
+    rng = np.random.default_rng(seed)
+    y = np.zeros((1, image, image), np.int32)
+    for _ in range(5):
+        r0, c0 = rng.integers(0, image // 2, 2)
+        h, w = rng.integers(image // 8, image // 2, 2)
+        y[0, r0:r0 + h, c0:c0 + w] = rng.integers(1, FCN_CLASSES)
+    tint = rng.uniform(-1, 1, (FCN_CLASSES, 3)).astype(np.float32)
+    x = rng.standard_normal((1, 3, image, image), dtype=np.float32) \
+        + tint[y].transpose(0, 3, 1, 2)
+    y[:, :border] = y[:, -border:] = FCN_IGNORE
+    y[:, :, :border] = y[:, :, -border:] = FCN_IGNORE
+    return x, y
+
+
+def fcn_initializer():
+    return mt.init.Mixed([".*(score2|score4|bigscore)_weight", ".*"],
+                         [mt.init.Bilinear(), mt.init.Xavier(**FCN_INIT)])
+
+
+def fcn_params(symbol, image, seed=SEED):
+    """Random weights for the float32 check, numpy from ``seed``:
+    He-normal convolutions, the Deconvolutions at 0.1 of it, biases
+    N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    args, _, _ = symbol.infer_shape(data=(1, 3, image, image))
+    out = {}
+    for n, s in zip(symbol.list_arguments(), args):
+        if n in ("data", "softmax_label"):
+            continue
+        if n.endswith("_bias"):
+            out[n] = rng.normal(0, 0.1, s).astype(np.float32)
+            continue
+        scale = np.sqrt(2.0 / np.prod(s[1:]))
+        if n.startswith(("score2", "score4", "bigscore")):
+            scale *= 0.1
+        out[n] = (rng.standard_normal(s) * scale).astype(np.float32)
+    return out
+
+
+def fcn_step_vs_cpu(lr):
+    """One fused float32 step of FCN-8s (Dropout at p = 0, TF32 off) at
+    1 x 3 x FCN_CHECK_IMAGE^2 on the card and on the port's CPU from the
+    same weights, SGD as train_fcn's: the step's output, the gradients,
+    and every weight after the update, as relative norms."""
+    symbol = fcn8s_symbol(dropout=0.0)
+    arg = fcn_params(symbol, FCN_CHECK_IMAGE)
+    x, y = fcn_batch(FCN_CHECK_IMAGE, border=4)
+    batch = {"data": x, "softmax_label": y.astype(np.float32)}
+    runs = {}
+    for side, ctx in (("card", mt.gpu()), ("cpu", mt.cpu())):
+        with ctx:
+            tr = mt.parallel.Trainer(symbol, mt.optimizer.create(
+                "sgd", learning_rate=lr, **FCN_SGD))
+        tr.bind({"data": x.shape}, {"softmax_label": y.shape})
+        tr.init_params(arg_params={n: torch.from_numpy(v)
+                                   for n, v in arg.items()}, aux_params={})
+        _, _, grads = tr._run_backward(tr.params, tr.aux,
+                                       tr._device_batch(batch), None)
+        out = tr.step(batch)[0].data
+        runs[side] = ({n: g.cpu() for n, g in grads.items()},
+                      out.cpu(), {n: v.cpu() for n, v in tr.params.items()})
+        del tr, grads, out
+    (cg, co, cp), (hg, ho, hp) = runs["card"], runs["cpu"]
+    grad = _rel_norms(cg, hg)
+    stepped = _rel_norms(cp, hp)
+    worst = max(stepped, key=stepped.get)
+    held = {"step_output": _rel_norms({"o": co}, {"o": ho})["o"],
+            "score_weight_grad": grad["score_weight"],
+            "score_pool4_weight_grad": grad["score_pool4_weight"],
+            "bigscore_weight_grad": grad["bigscore_weight"],
+            "worst_weight_after_step": stepped[worst]}
+    torch.cuda.empty_cache()
+    return {"image": FCN_CHECK_IMAGE, "lr": lr, "held_to_tolerance": held,
+            "tolerance": FCN_TOL, "worst_weight": worst,
+            "grad_rel_err_median": statistics.median(grad.values()),
+            "grad_rel_err_max": max(grad.values()),
+            "finite": bool(torch.isfinite(co).all())}
+
+
+def fcn_cross_entropy(probs, label):
+    """Mean -log p(label) over the pixels not labelled FCN_IGNORE."""
+    label = label.long()
+    valid = label != FCN_IGNORE
+    picked = probs.float().gather(1, label.clamp(max=FCN_CLASSES - 1)
+                                  .unsqueeze(1)).squeeze(1)
+    return float(-picked.clamp(min=1e-30).log()[valid].mean())
+
+
+def fcn_fit(lr, compute_dtype=None, profile_steps=0):
+    """``Module.fit`` of FCN-8s on the card (float32 compute, or
+    ``compute_dtype``), FCN_STEPS steps of one batch at lr ``lr``; the
+    replayed steps' kernels in a profiler trace when ``profile_steps``.
+    Returns its record and the module."""
+    x, y = fcn_batch(FCN_IMAGE)
+    xs = torch.from_numpy(x).cuda()
+    ys = torch.from_numpy(y).cuda()
+    data = mt.io.NDArrayIter(mt.nd.NDArray(xs.repeat(FCN_STEPS, 1, 1, 1)),
+                             mt.nd.NDArray(ys.repeat(FCN_STEPS, 1, 1)),
+                             batch_size=1)
+    mod = mt.mod.Module(fcn8s_symbol(), context=mt.gpu(),
+                        compute_dtype=compute_dtype)
+    steps, last = [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        probs = param.locals["self"].get_outputs()[0].data
+        steps.append({"s": now - last["t"],
+                      "ce": fcn_cross_entropy(probs, ys)})
+        last["t"] = time.perf_counter()
+
+    mt.random.seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = last["t"] = time.perf_counter()
+    mod.fit(data, num_epoch=1, kvstore="device", optimizer="sgd",
+            optimizer_params=dict(FCN_SGD, learning_rate=lr),
+            initializer=fcn_initializer(), eval_metric="acc",
+            batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    tr = mod._trainer
+    if tr is None:
+        raise AssertionError("FCN-8s took the classic path")
+    replay_s = statistics.median(s["s"] for s in steps[2:])
+    ignored = float((ys == FCN_IGNORE).float().mean())
+    record = {"lr": lr, "steps": len(steps), "batch": 1,
+              "image": FCN_IMAGE, "compute_dtype": compute_dtype or "float32",
+              "first_step_s": steps[0]["s"], "capture_step_s": steps[1]["s"],
+              "replay_step_s": replay_s, "step_ms": replay_s * 1e3,
+              "img_per_s": 1.0 / replay_s,
+              "step_s_runs": [s["s"] for s in steps],
+              "cross_entropy_by_step": [s["ce"] for s in steps],
+              "loss_fell": steps[-1]["ce"] < steps[0]["ce"],
+              "ignored_label_frac": ignored,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "graph_captures": tr.graph_captures,
+              "graph_replays": tr.graph_replays, "launches": launches,
+              "fit_s": time.perf_counter() - t0}
+    if profile_steps:
+        record["profile"] = fcn_step_profile(mod, xs, ys, profile_steps)
+    return record, mod
+
+
+# kernel-name groups of FCN-8s's replayed step; a name goes to the first
+# group whose pattern it matches.  cuDNN runs a transposed convolution's
+# forward as a convolution's data gradient, so Deconvolution shares the
+# convolution kernels' names and is not a group of its own
+FCN_KERNEL_GROUPS = (
+    ("softmax", re.compile(r"softmax", re.I)),
+    ("convolution (cuDNN, Deconvolution included)",
+     re.compile(r"conv|cudnn|xmma|implicit|dgrad|wgrad|fprop|gemm|sm90",
+                re.I)),
+    ("pooling", re.compile(r"pool", re.I)),
+    ("SGD and other elementwise passes",
+     re.compile(r"elementwise|vectorized|foreach|multi_tensor|unrolled",
+                re.I)),
+)
+
+
+def fcn_step_profile(mod, xs, ys, n):
+    """``n`` replayed fused steps traced by ``torch.profiler``: device
+    ms a step by kernel group, the largest kernels, the idle share."""
+    batch = {"data": mt.nd.NDArray(xs), "softmax_label": mt.nd.NDArray(ys)}
+    tr = mod._trainer
+    tr.step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, spans = device_idle_share(prof, wall)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / n
+    groups = {}
+    for name, ms in by_name.items():
+        group = next((g for g, pat in FCN_KERNEL_GROUPS if pat.search(name)),
+                     "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": n, "wall_ms_a_step": wall / n * 1e3,
+            "device_ms_a_step": sum(by_name.values()),
+            "idle_share": idle, "device_events": spans,
+            "groups_ms": groups,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def fcn_nodes_on_card(mod):
+    """One eager float32 forward of the fused module's symbol through an
+    executor on the card with the module's weights, every op output
+    tapped: the device of each Deconvolution and Crop node's output."""
+    symbol = fcn8s_symbol()
+    ex = symbol.simple_bind(mt.gpu(), grad_req="null",
+                            data=(1, 3, FCN_IMAGE, FCN_IMAGE),
+                            softmax_label=(1, FCN_IMAGE, FCN_IMAGE))
+    arg, aux = mod.get_params()
+    ex.copy_params_from(arg, aux, allow_extra_params=True)
+    seen = {}
+
+    def tap(name, arr):
+        node = name.rsplit("_output", 1)[0]
+        if node in FCN_DECONV_CROP:
+            seen[node] = (str(arr.data.device), tuple(arr.shape))
+
+    ex.install_monitor(tap)
+    x, _ = fcn_batch(FCN_IMAGE)
+    ex.forward(is_train=False, data=x)
+    torch.cuda.synchronize()
+    del ex
+    torch.cuda.empty_cache()
+    return seen
+
+
+def train_fcn(card, lrs=None):
+    """FCN-8s on the card: ``Module.fit`` at full width (fcn_fit) in
+    float32 at FCN_LR, or first at each of ``lrs`` in turn, then the same
+    fit in bfloat16; the Deconvolution and Crop nodes' outputs on the
+    card; one float32 step against the port's CPU.  Asserts the fused
+    path, one capture and a replay a step in both dtypes, a falling loss
+    in float32 (bfloat16 weights do not resolve updates at fcn_xs.py's
+    lrs: its loss is reported), none of the port's kernels, every node on
+    the card and the float32 step within FCN_TOL.  Returns (launches,
+    record)."""
+    _phase("train_fcn")
+    t_phase = time.perf_counter()
+    sweep = []
+    for lr, dtype in lrs or ():
+        rec, mod = fcn_fit(lr, dtype)
+        del mod
+        sweep.append({k: rec[k] for k in ("lr", "compute_dtype",
+                                          "cross_entropy_by_step",
+                                          "loss_fell", "step_ms")})
+        print("train_fcn lr %.0e %s: loss %s" % (
+            lr, rec["compute_dtype"],
+            ["%.5f" % c for c in rec["cross_entropy_by_step"]]), flush=True)
+    record, mod = fcn_fit(FCN_LR, profile_steps=3)
+    nodes = fcn_nodes_on_card(mod)
+    del mod
+    bf16, mod = fcn_fit(FCN_LR, "bfloat16", profile_steps=3)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = fcn_step_vs_cpu(FCN_LR)
+    record.update(lr_sweep=sweep, deconv_crop_nodes=nodes, vs_cpu=check,
+                  bfloat16=bf16, card=card,
+                  phase_s=time.perf_counter() - t_phase)
+    _emit({"train_fcn": record})
+    for rec in (record, bf16):
+        ce = rec["cross_entropy_by_step"]
+        print("train_fcn %s (%s): batch 1 of %d^2, lr %g, step %.2f ms, "
+              "%.2f img/s, capture step %.0f ms, peak %.2f GB, loss %.5f "
+              "-> %.5f, ignored %.3f of the label, K1/B2/K2 launches %d; "
+              "device ms a step by group %s, idle %.3f" % (
+                  rec["compute_dtype"], card, FCN_IMAGE, FCN_LR,
+                  rec["step_ms"], rec["img_per_s"],
+                  rec["capture_step_s"] * 1e3,
+                  rec["peak_memory_bytes"] / 1e9, ce[0], ce[-1],
+                  rec["ignored_label_frac"], sum(rec["launches"].values()),
+                  {k: round(v, 2) for k, v in
+                   rec["profile"]["groups_ms"].items()},
+                  rec["profile"]["idle_share"]), flush=True)
+    print("train_fcn: Deconvolution and Crop outputs %s; float32 step at "
+          "%d^2 vs CPU %s (tolerance %g)" % (
+              {k: v[0] for k, v in nodes.items()}, FCN_CHECK_IMAGE,
+              {k: "%.2e" % v for k, v in check["held_to_tolerance"].items()},
+              FCN_TOL), flush=True)
+    ok = all((r["graph_captures"], r["graph_replays"], r["steps"])
+             == (1, FCN_STEPS - 1, FCN_STEPS)
+             and all(math.isfinite(c) for c in r["cross_entropy_by_step"])
+             for r in (record, bf16))
+    if not ok or not record["loss_fell"] \
+            or set(nodes) != set(FCN_DECONV_CROP) \
+            or not all(d.startswith("cuda") for d, _ in nodes.values()) \
+            or nodes["upscore"][1] != (1, FCN_CLASSES, FCN_IMAGE, FCN_IMAGE) \
+            or not check["finite"] \
+            or not all(math.isfinite(e) and e <= FCN_TOL
+                       for e in check["held_to_tolerance"].values()):
+        raise AssertionError("train_fcn gave %s" % record)
+    launches = {k: record["launches"][k] + bf16["launches"][k]
+                for k in record["launches"]}
+    expect_launches("train_fcn", launches)
+    return launches, record
+
+
+# ----------------------------------------------------------------------
+# loss_examples: the loss-layer examples at their own sizes, each symbol
+# rebuilt on mt, on the card and on the port's CPU
+def _example_params(mod):
+    arg, aux = mod.get_params()
+    return {n: v.data.float().cpu() for n, v in {**arg, **aux}.items()}
+
+
+def fcnxs_toy_symbol(sym, nclass=2):
+    """examples/fcn-xs/train_fcnxs_toy.py's ``fcnxs_symbol`` from ``sym``
+    (either package's): two pool stages down, two Deconvolutions back up
+    with the FCN-8s skip fusion, a per-pixel softmax."""
+    data = sym.Variable("data")
+    c1 = sym.Convolution(data, num_filter=16, kernel=(3, 3), pad=(1, 1),
+                         name="conv1")
+    p1 = sym.Pooling(sym.Activation(c1, act_type="relu"), kernel=(2, 2),
+                     stride=(2, 2), pool_type="max", name="pool1")
+    c2 = sym.Convolution(p1, num_filter=32, kernel=(3, 3), pad=(1, 1),
+                         name="conv2")
+    p2 = sym.Pooling(sym.Activation(c2, act_type="relu"), kernel=(2, 2),
+                     stride=(2, 2), pool_type="max", name="pool2")
+    score2 = sym.Convolution(p2, num_filter=nclass, kernel=(1, 1),
+                             name="score2")
+    score_pool1 = sym.Convolution(p1, num_filter=nclass, kernel=(1, 1),
+                                  name="score_pool1")
+    up2 = sym.Deconvolution(score2, kernel=(4, 4), stride=(2, 2),
+                            adj=(1, 1), num_filter=nclass, no_bias=True,
+                            name="up2")
+    fused = sym.Crop(up2, score_pool1, name="up2c") + score_pool1
+    bigscore = sym.Deconvolution(fused, kernel=(4, 4), stride=(2, 2),
+                                 adj=(1, 1), num_filter=nclass,
+                                 no_bias=True, name="bigscore")
+    return sym.SoftmaxOutput(sym.Crop(bigscore, data, name="upscore"),
+                             multi_output=True, normalization="valid",
+                             name="softmax")
+
+
+def autoencoder_symbol(sym, layer_dims, out_dim):
+    """examples/autoencoder/train_autoencoder_toy.py's ``ae_symbol``: an
+    encoder stack, its mirrored decoder, LinearRegressionOutput."""
+    h = sym.Variable("data")
+    for i, d in enumerate(layer_dims):
+        h = sym.Activation(sym.FullyConnected(h, num_hidden=d,
+                                              name="enc%d" % i),
+                           act_type="relu")
+    for i, d in enumerate(tuple(reversed(layer_dims[:-1])) + (out_dim,)):
+        h = sym.FullyConnected(h, num_hidden=d, name="dec%d" % i)
+        if i < len(layer_dims) - 1:
+            h = sym.Activation(h, act_type="relu")
+    return sym.LinearRegressionOutput(h, sym.Variable("label"), name="recon")
+
+
+def svm_symbol(sym, use_linear=False):
+    """examples/svm_mnist/svm_toy.py's ``svm_mlp``."""
+    net = sym.Activation(sym.FullyConnected(sym.Variable("data"),
+                                            num_hidden=48, name="fc1"),
+                         act_type="relu")
+    net = sym.FullyConnected(net, num_hidden=4, name="fc2")
+    return sym.SVMOutput(net, name="svm", regularization_coefficient=1.0,
+                         use_linear=use_linear)
+
+
+def nce_symbol(sym, vocab=100, hidden=32):
+    """examples/nce-loss/train_nce_toy.py's ``get_net``: Embedding-gathered
+    candidate vectors against an FC representation, a
+    LogisticRegressionOutput over [true, noise...]."""
+    pred = sym.FullyConnected(sym.Variable("data"), num_hidden=hidden,
+                              name="fc")
+    embed = sym.Embedding(sym.Variable("label"), input_dim=vocab,
+                          weight=sym.Variable("embed_weight"),
+                          output_dim=hidden, name="label_embed")
+    pred = sym.broadcast_mul(sym.Reshape(pred, shape=(-1, 1, hidden)), embed)
+    return sym.LogisticRegressionOutput(sym.sum(pred, axis=2),
+                                        sym.Variable("label_weight"),
+                                        name="nce")
+
+
+def matrix_fact_symbol(sym, users=40, items=30, rank=6):
+    """examples/recommenders/matrix_fact_toy.py's ``mf_symbol``."""
+    u = sym.Flatten(sym.Embedding(sym.Variable("user"), input_dim=users,
+                                  output_dim=rank, name="user_embed"))
+    v = sym.Flatten(sym.Embedding(sym.Variable("item"), input_dim=items,
+                                  output_dim=rank, name="item_embed"))
+    return sym.LinearRegressionOutput(sym.sum(u * v, axis=1, keepdims=True),
+                                      sym.Variable("score_label"),
+                                      name="score")
+
+
+def dec_encoder_symbol(sym, latent=2):
+    """examples/dec/dec_toy.py's ``encoder_symbol``."""
+    h = sym.Activation(sym.FullyConnected(sym.Variable("data"),
+                                          num_hidden=16, name="enc1"),
+                       act_type="relu")
+    return sym.FullyConnected(h, num_hidden=latent, name="enc2")
+
+
+def dec_symbol(sym, centers=3, latent=2, alpha=1.0):
+    """examples/dec/dec_toy.py's ``dec_symbol``: the Student-t soft
+    assignment Q of the encoder's embeddings to the centroids, KL(P || Q)
+    under MakeLoss, and Q (BlockGrad'd) in one Group."""
+    z = dec_encoder_symbol(sym, latent)
+    mu = sym.Variable("dec_mu_weight", shape=(centers, latent))
+    p = sym.Variable("p_label")
+    dist2 = sym.sum(sym.square(sym.broadcast_sub(
+        sym.Reshape(z, shape=(-1, 1, latent)),
+        sym.Reshape(mu, shape=(1, centers, latent)))), axis=2)
+    qu = (1.0 + dist2 / alpha) ** (-(alpha + 1.0) / 2.0)
+    q = sym.broadcast_div(qu, sym.sum(qu, axis=1, keepdims=True))
+    kl = sym.sum(p * (sym.log(p + 1e-6) - sym.log(q + 1e-6)))
+    return sym.Group([sym.BlockGrad(q), sym.MakeLoss(kl, name="dec")])
+
+
+def example_fcnxs(epochs=6, batch=8, n=64):
+    """examples/fcn-xs/train_fcnxs_toy.py at its size, Adam; pixel
+    accuracy over the training set (its assert: > 0.9)."""
+    hw = 32
+    net = fcnxs_toy_symbol(mt.sym)
+    rng = np.random.RandomState(0)
+    x = rng.normal(0, 0.3, (n, 3, hw, hw)).astype("f")
+    y = np.zeros((n, hw, hw), "f")
+    for i in range(n):
+        h, w = rng.randint(8, 20, 2)
+        r, c = rng.randint(0, hw - h), rng.randint(0, hw - w)
+        x[i, :, r:r + h, c:c + w] += rng.uniform(1.0, 2.0)
+        y[i, r:r + h, c:c + w] = 1.0
+    it = mt.io.NDArrayIter(x, y, batch_size=batch, shuffle=True,
+                           label_name="softmax_label")
+    mod = mt.mod.Module(net, context=mt.base.current_context())
+    mod.fit(it, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": 0.01},
+            initializer=mt.init.Xavier(magnitude=2.0))
+    it.reset()
+    correct = total = 0
+    for b in it:
+        mod.forward(b, is_train=False)
+        pred = mod.get_outputs()[0].asnumpy().argmax(axis=1)
+        lab = b.label[0].asnumpy()
+        correct += (pred == lab).sum()
+        total += lab.size
+    acc = correct / total
+    return {"pixel_accuracy": acc}, acc > 0.9, _example_params(mod)
+
+
+def example_autoencoder(batch=32, pretrain_epochs=8, finetune_epochs=12,
+                        lr=2e-3):
+    """examples/autoencoder/train_autoencoder_toy.py: greedy layer-wise
+    pretraining of each encoder/decoder pair, then the whole stack,
+    LinearRegressionOutput, Adam; the validation reconstruction mse over
+    the data variance (its assert: < 0.15)."""
+    dims = (64, 32, 8)
+    proj = np.random.RandomState(1234).normal(0, 1, (6, dims[0])) \
+        .astype("f")
+
+    def make(rng, n):
+        latent = rng.normal(0, 1, (n, 6)).astype("f")
+        return latent @ proj + rng.normal(0, 0.05, (n, dims[0])).astype("f")
+
+    def stage(sym, X, epochs, arg_params=None):
+        it = mt.io.NDArrayIter(X, X.copy(), batch_size=batch, shuffle=True,
+                               label_name="label")
+        mod = mt.mod.Module(sym, label_names=("label",),
+                            context=mt.base.current_context())
+        mod.fit(it, num_epoch=epochs, optimizer="adam",
+                optimizer_params={"learning_rate": lr},
+                arg_params=arg_params, allow_missing=True,
+                initializer=mt.init.Xavier())
+        return dict(mod.get_params()[0]), mod
+
+    rng = np.random.RandomState(0)
+    X, Xv = make(rng, 768), make(rng, 128)
+    base_var = float((Xv ** 2).mean())
+    params, codes = {}, X
+    for i in range(len(dims) - 1):
+        got, _ = stage(autoencoder_symbol(mt.sym, (dims[i + 1],),
+                                          codes.shape[1]), codes,
+                       pretrain_epochs)
+        last = len(dims) - 2 - i
+        params.update({"enc%d_weight" % i: got["enc0_weight"],
+                       "enc%d_bias" % i: got["enc0_bias"],
+                       "dec%d_weight" % last: got["dec0_weight"],
+                       "dec%d_bias" % last: got["dec0_bias"]})
+        codes = np.maximum(codes @ got["enc0_weight"].asnumpy().T
+                           + got["enc0_bias"].asnumpy(), 0.0)
+    _, mod = stage(autoencoder_symbol(mt.sym, dims[1:], dims[0]), X,
+                   finetune_epochs, params)
+    it = mt.io.NDArrayIter(Xv, Xv.copy(), batch_size=batch,
+                           label_name="label")
+    ratio = dict(mod.score(it, mt.metric.MSE()))["mse"] / base_var
+    return {"mse_over_variance": ratio}, ratio < 0.15, _example_params(mod)
+
+
+def example_svm(epochs=10, batch=32):
+    """examples/svm_mnist/svm_toy.py: an MLP under SVMOutput (squared
+    hinge), SGD momentum 0.9; training accuracy (its assert: > 0.9)."""
+    net = svm_symbol(mt.sym)
+    rng = np.random.RandomState(0)
+    x = rng.randn(400, 20).astype("f")
+    y = np.argmax(x @ rng.randn(20, 4).astype("f"), axis=1).astype("f")
+    it = mt.io.NDArrayIter(x, y, batch_size=batch, shuffle=True,
+                           label_name="svm_label")
+    mod = mt.mod.Module(net, context=mt.base.current_context(),
+                        label_names=("svm_label",))
+    mod.fit(it, num_epoch=epochs, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.02, "momentum": 0.9},
+            initializer=mt.init.Xavier())
+    it.reset()
+    correct = total = 0
+    for b in it:
+        mod.forward(b, is_train=False)
+        pred = mod.get_outputs()[0].asnumpy().argmax(1)
+        lab = b.label[0].asnumpy()
+        correct += (pred == lab).sum()
+        total += len(lab)
+    acc = correct / total
+    return {"accuracy": acc}, acc > 0.9, _example_params(mod)
+
+
+class _NceIter(mt.io.DataIter):
+    """examples/nce-loss/train_nce_toy.py's NceIter: multi-hot features
+    whose bits give the true class; a batch carries [true, noise...]
+    candidate ids and their 0/1 indicator weights, the same every
+    epoch."""
+
+    def __init__(self, count, batch_size, vocab=100, num_label=6,
+                 feature=20, seed=0):
+        super().__init__(batch_size)
+        self.count, self.vocab, self.num_label = count, vocab, num_label
+        self.feature, self.seed = feature, seed
+        self.proj = np.random.RandomState(seed).randint(1, vocab,
+                                                        size=(feature,))
+        # the context current when the iterator is made: a fit on the
+        # fused path fetches batches on a thread of its own
+        self.ctx = mt.base.current_context()
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [mt.io.DataDesc("data", (self.batch_size, self.feature))]
+
+    @property
+    def provide_label(self):
+        return [mt.io.DataDesc("label", (self.batch_size, self.num_label)),
+                mt.io.DataDesc("label_weight",
+                               (self.batch_size, self.num_label))]
+
+    def reset(self):
+        self._batch = 0
+        self.rng = np.random.RandomState(self.seed + 1)
+
+    def next(self):
+        if self._batch >= self.count:
+            raise StopIteration
+        self._batch += 1
+        B, L = self.batch_size, self.num_label
+        x = np.zeros((B, self.feature), "f")
+        label = np.zeros((B, L), "f")
+        weight = np.zeros((B, L), "f")
+        for i in range(B):
+            bits = self.rng.choice(self.feature, 3, replace=False)
+            x[i, bits] = 1.0
+            true = int(self.proj[bits].sum() % self.vocab)
+            noise = self.rng.randint(0, self.vocab, 4 * L)
+            cand = [true] + [n for n in noise if n != true][:L - 1]
+            order = self.rng.permutation(L)
+            label[i] = np.asarray(cand, "f")[order]
+            weight[i] = (np.arange(L)[order] == 0).astype("f")
+        return mt.io.DataBatch(data=[mt.nd.array(x, ctx=self.ctx)],
+                               label=[mt.nd.array(label, ctx=self.ctx),
+                                      mt.nd.array(weight, ctx=self.ctx)],
+                               pad=0)
+
+
+class _NceAccuracy(mt.metric.EvalMetric):
+    def __init__(self):
+        super().__init__("nce-accuracy")
+
+    def update(self, labels, preds):
+        weight = labels[1].asnumpy()
+        scores = preds[0].asnumpy()
+        self.sum_metric += (scores.argmax(1) == weight.argmax(1)).sum()
+        self.num_inst += scores.shape[0]
+
+
+def example_nce(epochs=15, batch=32, batches=20):
+    """examples/nce-loss/train_nce_toy.py: Embedding-gathered candidate
+    vectors against an FC representation, LogisticRegressionOutput over
+    [true, noise...], Adam; NCE accuracy (its assert: > 0.8)."""
+    net = nce_symbol(mt.sym)
+    train = _NceIter(batches, batch)
+    mod = mt.mod.Module(net, context=mt.base.current_context(),
+                        data_names=("data",),
+                        label_names=("label", "label_weight"))
+    metric = _NceAccuracy()
+    mod.fit(train, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": 0.02},
+            initializer=mt.init.Xavier(), eval_metric=metric)
+    train.reset()
+    metric.reset()
+    for b in train:
+        mod.forward(b, is_train=False)
+        metric.update(b.label, mod.get_outputs())
+    acc = metric.get()[1]
+    return {"nce_accuracy": acc}, acc > 0.8, _example_params(mod)
+
+
+def example_matrix_fact(epochs=20, batch=64):
+    """examples/recommenders/matrix_fact_toy.py: user and item Embedding
+    tables, their product summed, LinearRegressionOutput, Adam; training
+    rmse (its assert: < 0.5)."""
+    users_n, items_n, rank = 40, 30, 6
+    net = matrix_fact_symbol(mt.sym, users_n, items_n, rank)
+    rng = np.random.RandomState(0)
+    U = rng.normal(0, 1, (users_n, rank)).astype("f")
+    V = rng.normal(0, 1, (items_n, rank)).astype("f")
+    users = rng.randint(0, users_n, 2048).astype("f")
+    items = rng.randint(0, items_n, 2048).astype("f")
+    scores = (U[users.astype(int)] * V[items.astype(int)]).sum(1) \
+        + rng.normal(0, 0.05, 2048).astype("f")
+    it = mt.io.NDArrayIter({"user": users.reshape(-1, 1),
+                            "item": items.reshape(-1, 1)},
+                           {"score_label": scores.astype("f")
+                            .reshape(-1, 1)},
+                           batch_size=batch, shuffle=True)
+    mod = mt.mod.Module(net, context=mt.base.current_context(),
+                        data_names=("user", "item"),
+                        label_names=("score_label",))
+    mod.fit(it, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": 0.02},
+            initializer=mt.init.Normal(0.3), eval_metric="rmse")
+    it.reset()
+    metric = mt.metric.create("rmse")
+    for b in it:
+        mod.forward(b, is_train=False)
+        metric.update(b.label, mod.get_outputs())
+    rmse = metric.get()[1]
+    return {"rmse": rmse}, rmse < 0.5, _example_params(mod)
+
+
+def example_dec(update_interval=4, rounds=40):
+    """examples/dec/dec_toy.py: an autoencoder-pretrained encoder,
+    k-means centroids, then self-training on KL(P || Q) under MakeLoss
+    with a BlockGrad'd Q in a Group, the encoder read through
+    ``Symbol.bind``'s Executor; cluster accuracy (its asserts: > 0.9
+    and no regression from the first round)."""
+    dim, latent, centers, alpha = 16, 2, 3, 1.0
+    ctx = mt.base.current_context()
+
+    def target(q):
+        w = (q ** 2) / q.sum(0)
+        return (w.T / w.sum(1)).T
+
+    def cluster_acc(pred, truth):
+        from itertools import permutations
+        return max((np.asarray(perm)[pred] == truth).mean()
+                   for perm in permutations(range(centers)))
+
+    rng = np.random.RandomState(0)
+    means = np.asarray([[0, 0], [2.2, 2.2], [0, 2.8]], "f")
+    y = rng.randint(0, centers, 300)
+    lat = means[y] + rng.normal(0, 0.55, (300, 2)).astype("f")
+    proj = rng.normal(0, 1, (2, dim)).astype("f")
+    x = (lat @ proj + rng.normal(0, 0.05, (300, dim))).astype("f")
+    # autoencoder pretrain of the encoder
+    h = mt.sym.Activation(mt.sym.FullyConnected(
+        dec_encoder_symbol(mt.sym, latent), num_hidden=16, name="dec1"),
+        act_type="relu")
+    ae = mt.sym.LinearRegressionOutput(
+        mt.sym.FullyConnected(h, num_hidden=dim, name="dec2"),
+        mt.sym.Variable("rec_label"), name="rec")
+    it = mt.io.NDArrayIter(x, x.copy(), batch_size=32, shuffle=True,
+                           label_name="rec_label")
+    mod = mt.mod.Module(ae, label_names=("rec_label",), context=ctx)
+    mod.fit(it, num_epoch=30, optimizer="adam",
+            optimizer_params={"learning_rate": 0.01},
+            initializer=mt.init.Xavier())
+    enc_args = {k: v for k, v in mod.get_params()[0].items()
+                if k.startswith("enc")}
+    z = dec_encoder_symbol(mt.sym, latent).bind(ctx, args={
+        "data": mt.nd.array(x, ctx=ctx),
+        **{k: mt.nd.array(v.asnumpy(), ctx=ctx)
+           for k, v in enc_args.items()}}).forward()[0].asnumpy()
+    cent = z[rng.choice(len(z), centers, replace=False)]
+    for _ in range(20):
+        assign = ((z[:, None] - cent[None]) ** 2).sum(-1).argmin(1)
+        for j in range(centers):
+            if (assign == j).any():
+                cent[j] = z[assign == j].mean(0)
+    mod = mt.mod.Module(dec_symbol(mt.sym, centers, latent, alpha),
+                        context=ctx, label_names=("p_label",))
+    batch = len(x)
+    mod.bind(data_shapes=[("data", (batch, dim))],
+             label_shapes=[("p_label", (batch, centers))])
+    mod.init_params(mt.init.Xavier())
+    mod.set_params({**{k: mt.nd.array(v.asnumpy())
+                       for k, v in enc_args.items()},
+                    "dec_mu_weight": mt.nd.array(cent)}, {},
+                   allow_missing=True)
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01,
+                                         "momentum": 0.9,
+                                         "rescale_grad": 1.0 / batch})
+    p = np.ones((batch, centers), "f") / centers
+    acc0 = None
+    for r in range(rounds):
+        if r % update_interval == 0:
+            mod.forward(mt.io.DataBatch(data=[mt.nd.array(x)],
+                                        label=[mt.nd.array(p)], pad=0),
+                        is_train=False)
+            q = mod.get_outputs()[0].asnumpy()
+            p = target(q).astype("f")
+            acc0 = cluster_acc(q.argmax(1), y) if acc0 is None else acc0
+        mod.forward(mt.io.DataBatch(data=[mt.nd.array(x)],
+                                    label=[mt.nd.array(p)], pad=0),
+                    is_train=True)
+        mod.backward()
+        mod.update()
+    mod.forward(mt.io.DataBatch(data=[mt.nd.array(x)],
+                                label=[mt.nd.array(p)], pad=0),
+                is_train=False)
+    acc = cluster_acc(mod.get_outputs()[0].asnumpy().argmax(1), y)
+    return ({"cluster_accuracy_first_round": acc0, "cluster_accuracy": acc},
+            acc > 0.9 and acc >= acc0, _example_params(mod))
+
+
+LOSS_EXAMPLES = [("fcn-xs", example_fcnxs),
+                 ("autoencoder", example_autoencoder),
+                 ("svm_mnist", example_svm),
+                 ("nce-loss", example_nce),
+                 ("recommenders", example_matrix_fact),
+                 ("dec", example_dec)]
+
+
+def run_example(fn, ctx, fused="auto"):
+    """``fn`` under ``ctx`` from mt.random.seed(SEED), its modules on
+    Module's ``fused`` policy (``MXTPU_MODULE_FUSED``): (score, its
+    assert held, parameters on the host, seconds)."""
+    before = os.environ.get("MXTPU_MODULE_FUSED")
+    os.environ["MXTPU_MODULE_FUSED"] = fused
+    mt.random.seed(SEED)
+    t0 = time.perf_counter()
+    try:
+        with ctx:
+            score, ok, params = fn()
+    finally:
+        if before is None:
+            os.environ.pop("MXTPU_MODULE_FUSED")
+        else:
+            os.environ["MXTPU_MODULE_FUSED"] = before
+    if ctx.device_type == "gpu":
+        torch.cuda.synchronize()
+    return score, bool(ok), params, time.perf_counter() - t0
+
+
+def loss_examples(card):
+    """Each loss-layer example at its own size on the card and on the
+    port's CPU, both on the classic executor path, the JAX package's path
+    for these examples (they bind the CPU; its fused step runs only on a
+    TPU): its end-of-run score against its own assert on both, and the
+    largest relative norm between the two runs' parameters within
+    EXAMPLE_PARAM_TOL.  Beside
+    them, each on the card's default path, the fused Trainer (a CUDA
+    graph a step, its optimizer state made anew at each epoch's end, as
+    the JAX package's fused fit does): its score and whether its assert
+    held, reported.  Returns (launches, records)."""
+    _phase("loss_examples")
+    reset_launch_counts()
+    records, bad = [], []
+    for name, fn in LOSS_EXAMPLES:
+        card_score, card_ok, card_params, card_s = run_example(
+            fn, mt.gpu(), "never")
+        cpu_score, cpu_ok, cpu_params, cpu_s = run_example(fn, mt.cpu(),
+                                                           "never")
+        fused_score, fused_ok, _, fused_s = run_example(fn, mt.gpu())
+        rel = _rel_norms(card_params, cpu_params)
+        worst = max(rel, key=rel.get)
+        rec = {"example": name, "card_score": card_score,
+               "cpu_score": cpu_score, "card_fused_score": fused_score,
+               "asserts_held": {"card": card_ok, "cpu": cpu_ok,
+                                "card_fused": fused_ok},
+               "param_rel_err_max": rel[worst], "worst_param": worst,
+               "card_s": card_s, "cpu_s": cpu_s, "card_fused_s": fused_s,
+               "card": card}
+        _emit({"loss_examples": rec})
+        print("loss_examples %s: card %s, CPU %s (parameters %.2e apart, "
+              "%s; tolerance %g); card fused %s (its assert %s); %.1f s "
+              "card, %.1f s CPU, %.1f s fused" % (
+                  name, card_score, cpu_score, rel[worst], worst,
+                  EXAMPLE_PARAM_TOL, fused_score,
+                  "held" if fused_ok else "missed", card_s, cpu_s, fused_s),
+              flush=True)
+        records.append(rec)
+        if not (card_ok and cpu_ok and rel[worst] <= EXAMPLE_PARAM_TOL):
+            bad.append(name)
+    counts = launch_counts()
+    if bad:
+        raise AssertionError("loss_examples failed %s: %s" % (bad, records))
+    expect_launches("loss_examples", counts)
+    return counts, records
+
+
+# ----------------------------------------------------------------------
+# op_sweep_card: tests/test_op_sweep.py's case table on the card
+def op_sweep_cases():
+    """The op-sweep case table, read from ``tests/test_op_sweep.py`` in
+    place: its statements up to the first function that binds a symbol,
+    run without its imports of the JAX package (the table itself is
+    numpy)."""
+    import ast
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "test_op_sweep.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    body = []
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "_build_symbol":
+            break
+        mods = [a.name for a in node.names] if isinstance(node, ast.Import) \
+            else [node.module or ""] if isinstance(node, ast.ImportFrom) \
+            else []
+        if any(m.split(".")[0] == "mxnet_tpu" for m in mods):
+            continue
+        body.append(node)
+    ns = {"__name__": "_op_sweep_table"}
+    exec(compile(ast.Module(body=body, type_ignores=[]), path, "exec"), ns)
+    return ns["CASES"]
+
+
+def _op_run(case, device, cots=None, rng=None):
+    """The port's op of ``case`` on ``device``, float32, with autograd:
+    (outputs, new aux, gradients of every input) on the host."""
+    from mxnet_tpu_torch.op import registry as treg
+    op = treg.get(case["op"])
+    p = op.parse_params(dict(case["params"]))
+    is_train = case["kind"] == "grad"
+    ctx = treg.OpContext(is_train=is_train, record=True, device=device,
+                         rng=rng)
+    xs = [torch.from_numpy(np.asarray(v, np.float32)).to(device)
+          .requires_grad_() for v in case["loc"].values()]
+    aux = [torch.from_numpy(np.asarray(v, np.float32)).to(device)
+           for v in (case["aux"] or {}).values()]
+    outs, new_aux = op.apply(p, ctx, *xs, *aux)
+    grads = []
+    if cots is not None:
+        heads = [(o, torch.from_numpy(c).to(device, o.dtype))
+                 for o, c in zip(outs, cots) if o.requires_grad]
+        got = torch.autograd.grad([h for h, _ in heads], xs,
+                                  [c for _, c in heads],
+                                  allow_unused=True) \
+            if heads and xs else [None] * len(xs)
+        grads = [(torch.zeros_like(x) if g is None else g).detach().cpu()
+                 for x, g in zip(xs, got)]
+    return ([o.detach().float().cpu() for o in outs],
+            [a.detach().float().cpu() for a in new_aux], grads)
+
+
+def op_sweep_card(card):
+    """Every case of tests/test_op_sweep.py's table whose op the port
+    registers, forward and backward on the card in float32 against the
+    port's CPU (the same random head gradients), within the case's own
+    tolerance (a gradient case's rtol/atol, a forward case's 1e-3/1e-4);
+    a sampler by its case's check on the card's draw.  Prints the worst
+    relative error per op family (the op's module).  Returns (launches,
+    record)."""
+    from mxnet_tpu_torch.op import registry as treg
+    _phase("op_sweep_card")
+    cases = op_sweep_cases()
+    run = [c for c in cases if c["kind"] != "imp"
+           and (c["op"] in treg._REGISTRY or c["op"] in treg._ALIASES)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    worst, failed = {}, []
+    cuda = torch.device("cuda")
+    for case in run:
+        op = treg.get(case["op"])
+        family = op.fn.__module__.rsplit(".", 1)[-1]
+        if op.uses_rng and not case["loc"]:
+            gen = torch.Generator(device=cuda).manual_seed(SEED)
+            out, _, _ = _op_run(case, cuda, rng=gen)
+            if not case["check"](out[0].numpy()):
+                failed.append(case["id"])
+            continue
+        if case["kind"] == "grad":
+            rtol, atol = case["rtol"], case["atol"]
+        else:
+            rtol, atol = 1e-3, 1e-4
+        outs, _, _ = _op_run(case, torch.device("cpu"))
+        rng = np.random.default_rng(1)
+        cots = [rng.standard_normal(tuple(o.shape)).astype(np.float32)
+                for o in outs]
+        want = _op_run(case, torch.device("cpu"), cots)
+        got = _op_run(case, cuda, cots)
+        err = 0.0
+        for g_list, w_list in zip(got, want):
+            for g, w in zip(g_list, w_list):
+                g, w = g.double(), w.double()
+                if g.shape != w.shape or not torch.allclose(
+                        g, w, rtol=rtol, atol=atol, equal_nan=True):
+                    failed.append(case["id"])
+                if g.numel():
+                    err = max(err, float((g - w).abs().max())
+                              / max(float(w.abs().max()), 1.0))
+        worst[family] = max(worst.get(family, 0.0), err)
+    counts = launch_counts()
+    record = {"cases": len(run), "table_cases": len(cases),
+              "not_registered": sorted({c["op"] for c in cases} -
+                                       {c["op"] for c in run}),
+              "worst_rel_err_by_family": worst, "failed": failed,
+              "launches": counts, "seconds": time.perf_counter() - t0,
+              "card": card}
+    _emit({"op_sweep_card": record})
+    print("op_sweep_card: %d of %d cases on the card against the CPU in "
+          "%.1f s; worst relative error by family %s; failed %s" % (
+              len(run), len(cases), record["seconds"],
+              {k: "%.1e" % v for k, v in worst.items()}, failed), flush=True)
+    if failed or not run:
+        raise AssertionError("op_sweep_card gave %s" % record)
+    return counts, record
+
+
+# ----------------------------------------------------------------------
 # open-loop load: tools/serve_bench.py's arrival engine, ported
 def arrival_schedule(n, rate_rps, seed):
     """``n`` cumulative Poisson arrival times at ``rate_rps``, seeded:
@@ -4769,6 +5795,13 @@ def main():
     # updates are PyTorch ops, as the JAX package leaves them to XLA
     paths["train_zoo"], _ = train_zoo(card)
     paths["optimizers"], _ = optimizers(card)
+    # FCN-8s, the loss-layer examples and the op sweep: Deconvolution goes
+    # to cuDNN's transposed convolution, as the JAX package leaves it to
+    # XLA; train_fcn and loss_examples launch none of the port's kernels,
+    # and the op sweep's attention case runs K1 and B2 at its tiny shape
+    paths["train_fcn"], _ = train_fcn(card)
+    paths["loss_examples"], _ = loss_examples(card)
+    paths["op_sweep_card"], _ = op_sweep_card(card)
     records = times(latencies)
     gelu = rtc_times()
     # the paths that replay a captured graph: what one replay launched (a

@@ -5,7 +5,8 @@ has Pallas kernels.  It imports neither JAX nor ``mxnet_tpu``.
 It serves models through :class:`Predictor` and the continuous-batching
 ``serving.ModelServer`` (one CUDA graph per tenant and shape bucket on
 the card), trains the transformer LM and
-the zoo's convnets (ResNet, LeNet, the MLP) through
+the zoo's convnets (ResNet, LeNet, the MLP) and segmentation networks
+(FCN-xs, through ``Deconvolution`` and ``Crop``) through
 ``mx.mod.Module.fit`` (on the card, the fused :class:`parallel.Trainer`
 step captured in one CUDA graph; elsewhere, or with
 ``MXTPU_MODULE_FUSED=never``, the classic executor path), with
@@ -71,3 +72,13 @@ envknobs.validate_environ()
 # sampling front-ends re-exported on mx.random (reference mxnet/random.py)
 for _sampler in ("uniform", "normal"):
     setattr(random, _sampler, getattr(ndarray, _sampler))
+
+# contrib namespaces: every ``_contrib_<name>`` op also as
+# ``mx.sym.contrib.<name>`` and ``mx.nd.contrib.<name>``
+import types as _types  # noqa: E402
+symbol.contrib = _types.SimpleNamespace()
+ndarray.contrib = _types.SimpleNamespace()
+for _n in sorted(set(op.registry._REGISTRY) | set(op.registry._ALIASES)):
+    if _n.startswith("_contrib_"):
+        setattr(symbol.contrib, _n[len("_contrib_"):], getattr(symbol, _n))
+        setattr(ndarray.contrib, _n[len("_contrib_"):], getattr(ndarray, _n))

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import random as _random
-from .base import MXNetError, current_context
+from .base import MXNetError, current_context, dtype_name
 from .ndarray import NDArray, zeros
 from .op.registry import OpContext
 from .symbol import Symbol, _topo
@@ -54,6 +54,31 @@ class _GraphProgram:
         # takes the process default
         self.dtype_policy = None
 
+    def _context(self, device, is_train, rng, record=None):
+        return OpContext(is_train=is_train, device=device,
+                         rng=_random.generator(device) if rng is None
+                         else rng, record=record,
+                         dtype_policy=self.dtype_policy)
+
+    def _eval_node(self, n, ctx, env, aux_vals, aux_out, monitor=None):
+        """Run the op node ``n`` on its inputs in ``env``: its outputs go
+        into ``env`` (those read later or kept), its aux updates into
+        ``aux_out``."""
+        in_vals = [env[(id(c), i)] for c, i in n.inputs]
+        slots = [self._aux_index["%s_%s" % (n.name, a)]
+                 for a in n.aux_names()]
+        node_aux = [aux_vals[s].detach() for s in slots]
+        outs, aux_updates = n.op.apply(n.params, ctx, *(in_vals + node_aux))
+        for i, v in enumerate(outs):
+            key = (id(n), i)
+            if key in self._read or key in self._kept:
+                env[key] = v
+            if monitor is not None:
+                monitor("%s_%s" % (n.name, n.op.list_outputs(n.params)[i]),
+                        NDArray(v.detach()))
+        for s, v in zip(slots, aux_updates):
+            aux_out[s] = v.detach()
+
     def _eval(self, arg_vals: Sequence[torch.Tensor],
               aux_vals: Sequence[torch.Tensor], device: torch.device,
               is_train=False, rng: Optional[torch.Generator] = None,
@@ -67,31 +92,14 @@ class _GraphProgram:
         output of every op node, named ``"<node>_<output>"`` as in the
         JAX package, before the walk releases it; it gets the value off
         the autograd graph."""
-        ctx = OpContext(is_train=is_train, device=device,
-                        rng=_random.generator(device) if rng is None else rng,
-                        dtype_policy=self.dtype_policy)
+        ctx = self._context(device, is_train, rng)
         env = {}
         aux_out = list(aux_vals)
         for pos, n in enumerate(self.nodes):
             if n.is_variable:
                 env[(id(n), 0)] = arg_vals[self._arg_index[n.name]]
                 continue
-            in_vals = [env[(id(c), i)] for c, i in n.inputs]
-            slots = [self._aux_index["%s_%s" % (n.name, a)]
-                     for a in n.aux_names()]
-            node_aux = [aux_vals[s].detach() for s in slots]
-            outs, aux_updates = n.op.apply(n.params, ctx,
-                                           *(in_vals + node_aux))
-            for i, v in enumerate(outs):
-                key = (id(n), i)
-                if key in self._read or key in self._kept:
-                    env[key] = v
-                if monitor is not None:
-                    monitor("%s_%s" % (n.name,
-                                       n.op.list_outputs(n.params)[i]),
-                            NDArray(v.detach()))
-            for s, v in zip(slots, aux_updates):
-                aux_out[s] = v.detach()
+            self._eval_node(n, ctx, env, aux_vals, aux_out, monitor)
             for key in self._release[pos]:
                 del env[key]
         outputs = tuple(env[(id(nd), i)] for nd, i in self.output_entries)
@@ -142,6 +150,10 @@ class Executor:
         # graph, and the leaf tensors that stand for the arguments
         self._graph = None
         self._monitor = None
+        # partial_forward's walk: (env, aux states, context, next step),
+        # and whether a walk ran to its end
+        self._partial = None
+        self._partial_done = False
 
     @property
     def outputs(self):
@@ -214,6 +226,89 @@ class Executor:
             else:
                 buf._set_data(g)
 
+    def partial_forward(self, is_train=False, step=0):
+        """Run exactly op node ``step`` of the forward (the nodes in
+        evaluation order, variables not counted); returns the number of
+        nodes left.  Call with ``step`` 0, 1, ... until it returns 0, as
+        the reference's ``PartialForward``; the outputs and aux states
+        are published after the last node.  A debugging surface: nothing
+        is recorded for a backward, and a step out of order raises."""
+        prog = self._prog
+        compute = [(pos, n) for pos, n in enumerate(prog.nodes)
+                   if not n.is_variable]
+        if step >= len(compute):
+            # "done" answers only right after a walk ran to its end; a
+            # cold or mid-walk step past the end is out of order
+            if not compute or (step > 0 and self._partial is None
+                               and self._partial_done):
+                return 0
+            raise MXNetError(
+                "partial_forward steps must be issued in order from 0 "
+                "(expected step %d, got %d)"
+                % (self._partial[3] if self._partial else 0, step))
+        if step == 0:
+            self._partial_done = False
+            env = {(id(n), 0): self.arg_dict[n.name].data
+                   for n in prog.nodes if n.is_variable}
+            self._partial = (env, [a.data for a in self.aux_arrays],
+                             prog._context(self._device, is_train, None,
+                                           record=False), 0)
+        if self._partial is None or self._partial[3] != step:
+            raise MXNetError(
+                "partial_forward steps must be issued in order from 0 "
+                "(expected step %s, got %d)"
+                % (self._partial[3] if self._partial else 0, step))
+        env, aux_out, ctx, _ = self._partial
+        pos, node = compute[step]
+        with torch.no_grad():
+            prog._eval_node(node, ctx, env, [a.data for a in
+                                             self.aux_arrays], aux_out)
+        for key in prog._release[pos]:
+            del env[key]
+        left = len(compute) - step - 1
+        if left:
+            self._partial = (env, aux_out, ctx, step + 1)
+            return left
+        for arr, v in zip(self.aux_arrays, aux_out):
+            if v is not arr.data:
+                arr._set_data(v)
+        self._outputs = [NDArray(env[(id(nd), i)])
+                         for nd, i in prog.output_entries]
+        self._partial = None
+        self._partial_done = True
+        self._graph = None      # no backward for these outputs
+        return 0
+
+    def debug_str(self):
+        """The graph as the JAX package prints it: the outputs, then a
+        line a node in evaluation order with the dtype and shape of each
+        of its outputs at the bound shapes."""
+        internals = self._symbol.get_internals()
+        try:
+            _, shapes, _ = internals.infer_shape(
+                **{n: tuple(a.shape) for n, a in self.arg_dict.items()})
+            _, dtypes, _ = internals.infer_type(
+                **{n: a.dtype for n, a in self.arg_dict.items()})
+        except MXNetError:
+            shapes = dtypes = None
+        lines = ["Symbol outputs: %s"
+                 % ", ".join(self._symbol.list_outputs())]
+        k = 0
+        for n in self._prog.nodes:
+            outs = []
+            for _ in range(n.num_outputs()):
+                s = shapes[k] if shapes else None
+                t = dtypes[k] if dtypes else None
+                outs.append("%s %s" % (dtype_name(t) if t is not None
+                                       else "?", s if s is not None else "?"))
+                k += 1
+            sd = ", out=[%s]" % "; ".join(outs)
+            if n.is_variable:
+                lines.append("Variable:%s%s" % (n.name, sd))
+            else:
+                lines.append("Op:%s, Name=%s%s" % (n.op.name, n.name, sd))
+        return "\n".join(lines)
+
     def reshape(self, partial_shaping=False, allow_up_sizing=False,
                 **kwargs):
         """A new executor for new input shapes (reference
@@ -273,8 +368,23 @@ def _to_dict(arrays, names, what, allow_partial=False):
     return dict(zip(names, arrays))
 
 
-def bind(sym, ctx, args, args_grad=None, grad_req="write", aux_states=None):
+def _check_group2ctx(group2ctx, ctx):
+    """A ``group2ctx`` map is taken where every context it names is the
+    bound one: everything runs there.  Placing groups on other devices
+    comes with the multi-device slice."""
+    for group, where in (group2ctx or {}).items():
+        if where != ctx:
+            raise MXNetError(
+                "group2ctx places group %r on %s, not on the bound %s: "
+                "placement across devices is not ported yet (ROADMAP "
+                "item 5)" % (group, where, ctx))
+
+
+def bind(sym, ctx, args, args_grad=None, grad_req="write", aux_states=None,
+         group2ctx=None):
     """Bind given arrays (reference ``executor.py:489``)."""
+    ctx = ctx or current_context()
+    _check_group2ctx(group2ctx, ctx)
     arg_names = sym.list_arguments()
     aux_names = sym.list_auxiliary_states()
     args = _to_dict(args, arg_names, "args")
@@ -286,7 +396,7 @@ def bind(sym, ctx, args, args_grad=None, grad_req="write", aux_states=None):
 
 
 def simple_bind(sym, ctx=None, grad_req="write", type_dict=None,
-                shared_exec=None, **kwargs):
+                shared_exec=None, group2ctx=None, **kwargs):
     """Infer every shape and dtype from the given input shapes and bind
     zero-filled arrays, gradients for each argument whose ``grad_req`` is
     not ``null`` (reference ``executor.py:504-545``).
@@ -298,6 +408,7 @@ def simple_bind(sym, ctx=None, grad_req="write", type_dict=None,
     write one memory; only what differs (the inputs and gradients of
     another length) is allocated."""
     ctx = ctx or current_context()
+    _check_group2ctx(group2ctx, ctx)
     arg_names = sym.list_arguments()
     aux_names = sym.list_auxiliary_states()
     arg_shapes, _, aux_shapes = sym.infer_shape(**kwargs)

@@ -79,15 +79,27 @@ class EvalMetric(object):
             self._host[1] += int(n)
         self._acc = []
 
+    # host numbers a subclass may also write, as a user's metric that
+    # counts in its own update does (``self.sum_metric += ...``)
     @property
     def sum_metric(self):
         self._drain()
         return self._host[0]
 
+    @sum_metric.setter
+    def sum_metric(self, v):
+        self._drain()
+        self._host[0] = v
+
     @property
     def num_inst(self):
         self._drain()
         return self._host[1]
+
+    @num_inst.setter
+    def num_inst(self, v):
+        self._drain()
+        self._host[1] = v
 
     def get(self):
         self._drain()

@@ -529,9 +529,16 @@ class Module(BaseModule):
             self._trainer = self._new_trainer(opt.SGD())
 
     def _fused_batch_dict(self, data_batch):
-        batch = dict(zip(self._data_names, data_batch.data))
+        """The batch's arrays by name, in the order of the shapes the
+        module was bound with (the iterator's ``provide_data`` and
+        ``provide_label``), which a batch's arrays follow, as the classic
+        path's executor group reads them: a dict-fed ``NDArrayIter``
+        sorts its inputs by name, whatever order ``data_names`` gives."""
+        batch = dict(zip([d.name for d in self._data_shapes],
+                         data_batch.data))
         if data_batch.label is not None:
-            batch.update(zip(self._label_names, data_batch.label))
+            batch.update(zip([d.name for d in self._label_shapes or []],
+                             data_batch.label))
         return batch
 
     def backward(self, out_grads=None):

@@ -8,6 +8,8 @@ numbers than the JAX package's threefry keys give.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .registry import Param, register, alias
@@ -88,3 +90,91 @@ _reg_sampler(
     "_sample_normal", (Param("loc", float, 0.0), Param("scale", float, 1.0)),
     lambda p, c: _empty(p, c).normal_(p["loc"], p["scale"], generator=c.rng),
     aliases=("normal", "random_normal", "_random_normal"))
+
+
+def _standard_gamma(alpha, shape, gen, device):
+    """Gamma(alpha, 1) draws in float32 from ``gen`` alone (torch's own
+    gamma sampler takes no generator): Marsaglia and Tsang's squeeze for
+    ``alpha >= 1``, every pending element drawing a normal and a uniform
+    a round until all are accepted; for ``alpha < 1`` a Gamma(alpha + 1)
+    draw times ``U ** (1 / alpha)``."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if device.type == "meta":
+        return out
+    a = alpha if alpha >= 1.0 else alpha + 1.0
+    d = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    flat = out.view(-1)
+    pending = torch.arange(flat.numel(), device=device)
+    while pending.numel():
+        x = torch.empty(pending.numel(), device=device).normal_(
+            generator=gen)
+        u = torch.empty(pending.numel(), device=device).uniform_(
+            generator=gen)
+        v = (1.0 + c * x) ** 3
+        ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d
+                        - d * v + d * torch.log(v.clamp(min=1e-30)))
+        flat[pending[ok]] = d * v[ok]
+        pending = pending[~ok]
+    if alpha < 1.0:
+        u = torch.empty(shape, device=device).uniform_(generator=gen)
+        out = out * u.pow(1.0 / alpha)
+    return out
+
+
+def _gamma(p, c):
+    out = _standard_gamma(p["alpha"], p["shape"] or (1,), c.rng, c.device)
+    return (out * p["beta"]).to(p["dtype"])
+
+
+def _exponential(p, c):
+    out = torch.empty(p["shape"] or (1,), dtype=torch.float32,
+                      device=c.device).exponential_(1.0, generator=c.rng)
+    return (out / p["lam"]).to(p["dtype"])
+
+
+def _poisson(lam, gen):
+    """Poisson draws at the rates ``lam`` (a float32 tensor)."""
+    if lam.device.type == "meta":
+        return torch.empty_like(lam)
+    return torch.poisson(lam, generator=gen)
+
+
+def _poisson_op(p, c):
+    lam = torch.full(p["shape"] or (1,), p["lam"], dtype=torch.float32,
+                     device=c.device)
+    return _poisson(lam, c.rng).to(p["dtype"])
+
+
+def _gamma_poisson(k, prob, p, c):
+    """A negative binomial draw: Poisson at a Gamma(k, (1 - prob) / prob)
+    rate."""
+    lam = _standard_gamma(k, p["shape"] or (1,), c.rng, c.device) \
+        * ((1.0 - prob) / prob)
+    return _poisson(lam, c.rng).to(p["dtype"])
+
+
+def _neg_binomial(p, c):
+    return _gamma_poisson(p["k"], p["p"], p, c)
+
+
+def _gen_neg_binomial(p, c):
+    k = 1.0 / p["alpha"]
+    return _gamma_poisson(k, k / (k + p["mu"]), p, c)
+
+
+_reg_sampler("_sample_gamma",
+             (Param("alpha", float, 1.0), Param("beta", float, 1.0)),
+             _gamma, aliases=("random_gamma",))
+_reg_sampler("_sample_exponential", (Param("lam", float, 1.0),),
+             _exponential, aliases=("random_exponential", "exponential"))
+_reg_sampler("_sample_poisson", (Param("lam", float, 1.0),), _poisson_op,
+             aliases=("random_poisson", "poisson"))
+_reg_sampler("_sample_negbinomial",
+             (Param("k", int, 1), Param("p", float, 1.0)), _neg_binomial,
+             aliases=("random_negative_binomial", "negative_binomial"))
+_reg_sampler("_sample_gennegbinomial",
+             (Param("mu", float, 1.0), Param("alpha", float, 1.0)),
+             _gen_neg_binomial,
+             aliases=("random_generalized_negative_binomial",
+                      "generalized_negative_binomial"))

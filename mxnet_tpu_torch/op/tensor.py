@@ -11,6 +11,7 @@ import ast
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError, cast
 from .registry import Param, register, alias, get
@@ -325,3 +326,236 @@ def _zeros_like(p, c, a):
 @register("ones_like")
 def _ones_like(p, c, a):
     return torch.ones_like(a)
+
+
+# ----------------------------------------------------------------------
+# the rest of the shape and layout ops: views where torch has one, plain
+# torch ops otherwise, nothing read from the host
+@register("SwapAxis", params_spec=(Param("dim1", int, 0),
+                                   Param("dim2", int, 0)),
+          hint="swapaxis")
+def _swapaxis(p, c, a):
+    return a.transpose(p["dim1"], p["dim2"])
+
+
+alias("swapaxes", "SwapAxis")
+
+
+@register("slice", params_spec=(Param("begin", "shape", required=True),
+                                Param("end", "shape", required=True)))
+def _slice(p, c, a):
+    return a[tuple(slice(b, e) for b, e in zip(p["begin"], p["end"]))]
+
+
+@register("Crop", params_spec=(Param("num_args", int, 1),
+                               Param("offset", "shape", (0, 0)),
+                               Param("h_w", "shape", (0, 0)),
+                               Param("center_crop", bool, False)),
+          input_names=lambda p: ["arg%d" % i for i in range(p["num_args"])],
+          hint="crop")
+def _crop(p, c, *xs):
+    """A window of ``(N, C, H, W)`` data as a view: the second input's
+    height and width (two inputs) or ``h_w`` (one), at ``offset`` or,
+    with ``center_crop``, centred (the odd pixel on the far side)."""
+    a = xs[0]
+    th, tw = (xs[1].shape[2], xs[1].shape[3]) if len(xs) == 2 else p["h_w"]
+    if p["center_crop"]:
+        oy, ox = (a.shape[2] - th) // 2, (a.shape[3] - tw) // 2
+    else:
+        oy, ox = p["offset"]
+    return a[:, :, oy:oy + th, ox:ox + tw]
+
+
+def _pad_index(n, before, after, mode, device):
+    """The source index of every padded position along an axis of
+    length ``n``: clamped (edge) or mirrored without repeating the edge
+    (reflect), numpy's ``pad`` modes."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
+@register("Pad", params_spec=(Param("pad_width", "shape", required=True),
+                              Param("mode", str, "constant",
+                                    enum=("constant", "edge", "reflect")),
+                              Param("constant_value", float, 0.0)),
+          hint="pad")
+def _pad(p, c, a):
+    """``jnp.pad`` with ``pad_width`` given as (before, after) pairs for
+    every axis, flattened: a constant fill, or each padded axis gathered
+    through its edge or mirror index."""
+    pw = p["pad_width"]
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(a.ndim)]
+    if p["mode"] == "constant":
+        return F.pad(a, [q for lo, hi in reversed(pairs) for q in (lo, hi)],
+                     value=p["constant_value"])
+    for ax, (lo, hi) in enumerate(pairs):
+        if lo or hi:
+            a = a.index_select(ax, _pad_index(a.shape[ax], lo, hi,
+                                              p["mode"], a.device))
+    return a
+
+
+alias("pad", "Pad")
+
+
+@register("tile", params_spec=(Param("reps", "shape", required=True),))
+def _tile(p, c, a):
+    return torch.tile(a, p["reps"])
+
+
+@register("repeat", params_spec=(Param("repeats", int, required=True),
+                                 _axis_param()))
+def _repeat(p, c, a):
+    """``jnp.repeat``: every element ``repeats`` times along ``axis``,
+    over the flattened array without one."""
+    return a.repeat_interleave(p["repeats"], dim=p["axis"])
+
+
+@register("reverse", params_spec=(_axis_param("axis", required=True),))
+def _reverse(p, c, a):
+    ax = p["axis"]
+    return torch.flip(a, dims=ax if isinstance(ax, tuple) else (ax,))
+
+
+alias("flip", "reverse")
+
+
+@register("broadcast_axis", params_spec=(_axis_param(),
+                                         Param("size", "shape", ())))
+def _broadcast_axis(p, c, a):
+    ax = p["axis"]
+    axes = (ax,) if isinstance(ax, int) else (ax or ())
+    shape = list(a.shape)
+    for x, s in zip(axes, p["size"]):
+        shape[x] = s
+    return a.expand(shape)
+
+
+alias("broadcast_axes", "broadcast_axis")
+
+
+# ----------------------------------------------------------------------
+# ordering: a stable sort keeps tied elements in index order, as
+# ``lax.top_k`` and ``jnp.argsort`` do
+@register("argmax_channel")
+def _argmax_channel(p, c, a):
+    return torch.argmax(a, dim=1).to(a.dtype)
+
+
+@register("topk", params_spec=(_axis_param("axis", -1), Param("k", int, 1),
+                               Param("ret_typ", str, "indices",
+                                     enum=("value", "indices", "mask",
+                                           "both")),
+                               Param("is_ascend", bool, False)),
+          num_outputs=lambda p: 2 if p.get("ret_typ") == "both" else 1)
+def _topk(p, c, a):
+    """The ``k`` largest (smallest with ``is_ascend``) entries along
+    ``axis``: their values, their indices in the input's dtype, both,
+    or a mask of ones at them."""
+    ax = p["axis"] if p["axis"] is not None else a.ndim - 1
+    k = p["k"]
+    src = a.movedim(ax, -1)
+    key = -src if p["is_ascend"] else src
+    order = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    idx = order[..., :k]
+    if p["ret_typ"] == "mask":
+        mask = torch.zeros_like(src).scatter(-1, idx, 1.0)
+        return mask.movedim(-1, ax)
+    vals = src.gather(-1, idx).movedim(-1, ax)
+    idx = idx.movedim(-1, ax).to(a.dtype)
+    if p["ret_typ"] == "value":
+        return vals
+    if p["ret_typ"] == "indices":
+        return idx
+    return vals, idx
+
+
+@register("sort", params_spec=(_axis_param("axis", -1),
+                               Param("is_ascend", bool, True)))
+def _sort(p, c, a):
+    out = torch.sort(a, dim=p["axis"], stable=True).values
+    return out if p["is_ascend"] else torch.flip(out, dims=(p["axis"],))
+
+
+@register("argsort", params_spec=(_axis_param("axis", -1),
+                                  Param("is_ascend", bool, True)))
+def _argsort(p, c, a):
+    idx = torch.argsort(a, dim=p["axis"], stable=True)
+    if not p["is_ascend"]:
+        idx = torch.flip(idx, dims=(p["axis"],))
+    return idx.to(a.dtype)
+
+
+# ----------------------------------------------------------------------
+# the rest of indexing
+def _in_range(idx, n):
+    """Integer indices as the JAX ops' gathers read them: negative
+    indices count from the end, then clamp into ``[0, n)``."""
+    idx = idx.detach().to(torch.int64)
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+@register("take", params_spec=(Param("axis", int, 0),
+                               Param("mode", str, "clip",
+                                     enum=("clip", "wrap", "raise"))),
+          input_names=("a", "indices"))
+def _take(p, c, a, indices):
+    """``jnp.take``: indices truncated to integers, clamped into the
+    axis (``clip``, also for ``raise``, as the JAX op reads it) or
+    wrapped around it (``wrap``)."""
+    ax = p["axis"] % a.ndim
+    n = a.shape[ax]
+    idx = indices.detach().to(torch.int64)
+    idx = idx.remainder(n) if p["mode"] == "wrap" else idx.clamp(0, n - 1)
+    out = a.index_select(ax, idx.reshape(-1))
+    return out.reshape(a.shape[:ax] + idx.shape + a.shape[ax + 1:])
+
+
+@register("batch_take", input_names=("a", "indices"))
+def _batch_take(p, c, a, indices):
+    """``a[i, indices[i]]`` for every row ``i``."""
+    rows = torch.arange(a.shape[0], device=a.device)
+    return a[rows, _in_range(indices, a.shape[1])]
+
+
+@register("pick", params_spec=(_axis_param("axis", -1),
+                               Param("keepdims", bool, False)),
+          input_names=("data", "index"))
+def _pick(p, c, a, index):
+    """One element along ``axis`` a position, at ``index``."""
+    ax = p["axis"] if p["axis"] is not None else a.ndim - 1
+    ax %= a.ndim
+    idx = _in_range(index, a.shape[ax]).unsqueeze(ax)
+    out = a.gather(ax, idx)
+    return out if p["keepdims"] else out.squeeze(ax)
+
+
+# ----------------------------------------------------------------------
+# gradient-flow control and plumbing
+@register("BlockGrad", hint="blockgrad")
+def _block_grad(p, c, a):
+    return a.detach()
+
+
+alias("stop_gradient", "BlockGrad")
+
+
+@register("make_loss_internal")
+def _make_loss_internal(p, c, a):
+    return a
+
+
+@register("_identity_with_attr_like_rhs", input_names=("lhs", "rhs"))
+def _identity_attr_like(p, c, lhs, rhs):
+    return lhs
+
+
+@register("_CrossDeviceCopy", hint="crossdevicecopy")
+def _cross_device_copy(p, c, a):
+    """On one device a copy between devices is the identity, as inside
+    the JAX package's one program."""
+    return a

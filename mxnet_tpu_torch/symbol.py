@@ -88,10 +88,24 @@ class Symbol:
     def __repr__(self):
         return "<Symbol %s>" % (self.name or "group")
 
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __len__(self):
+        return len(self._outputs)
+
     def __getitem__(self, index):
         if isinstance(index, str):
             index = self.list_outputs().index(index)
         return Symbol([self._outputs[index]])
+
+    def __copy__(self):
+        """A new Symbol over the same nodes."""
+        return Symbol(list(self._outputs))
+
+    def __deepcopy__(self, memo):
+        """A new graph, through the JSON."""
+        return load_json(self.tojson())
 
     # arithmetic ---------------------------------------------------------
     def __add__(self, other):
@@ -123,6 +137,20 @@ class Symbol:
         return _sym_ufunc(self, other, "_power", "_power_scalar")
 
     # no __eq__/__ne__: like the reference Symbol, equality is identity
+    # (symbolic equality is sym.broadcast_equal); the orderings compare
+    def __gt__(self, other):
+        return _sym_ufunc(self, other, "_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return _sym_ufunc(self, other, "_greater_equal",
+                          "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return _sym_ufunc(self, other, "_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return _sym_ufunc(self, other, "_lesser_equal", "_lesser_equal_scalar")
+
     def __hash__(self):
         return id(self)
 
@@ -148,6 +176,17 @@ class Symbol:
                 names.extend("%s_%s" % (n.name, a) for a in n.aux_names())
         return names
 
+    def list_inputs(self) -> List[str]:
+        """The arguments, then the auxiliary states."""
+        return self.list_arguments() + self.list_auxiliary_states()
+
+    def attr(self, key):
+        """The attribute ``key`` of a single-output symbol's node, else
+        None."""
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].attrs.get(key)
+        return None
+
     def attr_dict(self):
         """Every node's attributes and params as strings, by node name
         (the ``__lr_mult__``/``__init__`` a Variable carries included)."""
@@ -163,15 +202,25 @@ class Symbol:
     # ------------------------------------------------------------------
     # binding (reference symbol.py bind / simple_bind)
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
-             aux_states=None):
+             aux_states=None, group2ctx=None, shared_exec=None):
         from .executor import bind
-        return bind(self, ctx, args, args_grad, grad_req, aux_states)
+        return bind(self, ctx, args, args_grad, grad_req, aux_states,
+                    group2ctx)
 
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    shared_exec=None, **kwargs):
+                    group2ctx=None, shared_exec=None, **kwargs):
         from .executor import simple_bind
         return simple_bind(self, ctx, grad_req, type_dict,
-                           shared_exec=shared_exec, **kwargs)
+                           shared_exec=shared_exec, group2ctx=group2ctx,
+                           **kwargs)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind ``kwargs`` as the arguments and run an inference
+        forward; returns the outputs."""
+        return self.bind(ctx, kwargs).forward()
+
+    def grad(self, wrt):
+        raise MXNetError("Symbol.grad is deprecated; use bind + backward")
 
     def get_internals(self) -> "Symbol":
         outs = []
@@ -179,6 +228,14 @@ class Symbol:
             for i in range(n.num_outputs()):
                 outs.append((n, i))
         return Symbol(outs)
+
+    def get_children(self):
+        """The inputs of the outputs' nodes as one Symbol, or None for a
+        variable."""
+        outs = []
+        for node, _ in self._outputs:
+            outs.extend(node.inputs)
+        return Symbol(outs) if outs else None
 
     # ------------------------------------------------------------------
     # shape / type inference
