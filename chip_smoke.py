@@ -160,8 +160,9 @@ fails:
    against the CPU;
 21. loss_examples: the six loss-layer examples (fcn-xs, autoencoder,
    svm_mnist, nce-loss, recommenders, dec) at their own sizes on the card
-   and on the port's CPU, on the classic path, each passing its own
-   assert; each also on the card's fused path, its score reported;
+   and on the port's CPU, on Module's fused path (the card's default) and
+   on its classic one, each run passing its example's own assert, the
+   card's parameters within EXAMPLE_PARAM_TOL of the CPU's on each path;
 22. op_sweep_card: every case of ``tests/test_op_sweep.py``'s table whose
    op the port registers, forward and backward on the card against the
    CPU within the case's tolerance;
@@ -414,15 +415,16 @@ OPT_RESUME_EPOCHS, OPT_RESUME_FAULT = 4, "crash@ckpt_write:save=2:soft"
 # SGD with momentum 0.99 and wd 5e-4 (fcn_xs.py), Mixed: Bilinear for the
 # three Deconvolutions, Xavier (the zoo's) for the rest; FCN_STEPS steps
 # of one synthetic batch through Module.fit, float32, and beside it the
-# same in bfloat16.  fcn_xs.py's lr is 1e-10 (its loss is summed over
-# 250,000 pixels); FCN_LR is the largest decade at or below it at which
-# the float32 loss fell at every step: at 1e-10 and 1e-11 it fell over
-# the run but rose on the way, at 1e-12 it fell every step (measured on
-# an H100, PERF.md).  In bfloat16 no lr from 1e-4 to 1e-14 made it fall:
-# a weight of the Bilinear kernels (up to 0.88) moves only by its
-# bfloat16 step, 2^-8 of it, and that step already overshoots
+# same in bfloat16.  FCN_LR is fcn_xs.py's lr (its loss is summed over
+# 250,000 pixels), at which the float32 loss fell over the run, rising on
+# the way (measured on an H100, PERF.md).  In bfloat16 no lr from 1e-4 to
+# 1e-14 made it fall, in this port or in the JAX package on the CPU
+# (tools/torch_fcn_bf16.py): Bilinear fills every channel pair, so the 21
+# class maps start equal and only bigscore's weights (up to 0.88) get a
+# gradient; their bfloat16 copies move by 2^-8 of themselves, and that
+# step already overshoots
 FCN_CLASSES, FCN_IMAGE, FCN_STEPS, FCN_IGNORE = 21, 500, 8, 255
-FCN_LR = 1e-12
+FCN_LR = 1e-10
 FCN_SGD = {"momentum": 0.99, "wd": 5e-4}
 FCN_INIT = dict(rnd_type="gaussian", factor_type="in", magnitude=2)
 FCN_BORDER = 12                  # the label's ignored border, in pixels
@@ -431,12 +433,13 @@ FCN_BORDER = 12                  # the label's ignored border, in pixels
 # step's output, the score heads' and bigscore's gradients and every
 # weight after the update to FCN_TOL
 FCN_CHECK_IMAGE, FCN_TOL = 64, 1e-4
-# loss_examples: the six loss-layer examples at their own sizes on the
-# card against the port's CPU on the classic path, each run from
-# mt.random.seed(SEED): each example's own end-of-run assert on both,
-# and the largest relative norm between the two runs' parameters to
-# EXAMPLE_PARAM_TOL (measured on an H100: at most 8.3e-7, fcn-xs's
-# conv1_weight after 48 Adam steps; the tolerance 12 times that)
+# loss_examples: the six loss-layer examples at their own sizes, each run
+# from mt.random.seed(SEED) on the card and on the port's CPU, on Module's
+# fused path and on its classic one: each example's own end-of-run assert
+# in all four runs, and on each path the largest relative norm between
+# the card's and the CPU's parameters to EXAMPLE_PARAM_TOL (measured on an
+# H100: at most 2.9e-6 fused, fcn-xs's conv2_weight after 48 Adam steps,
+# and 8.3e-7 classic; tools/torch_fused_divergence.py)
 EXAMPLE_PARAM_TOL = 1e-5
 # serve_server: the JAX package's documented serving cell
 # (docs/how_to/serving.md:33-45, tools/serve_bench.py:131-142): buckets,
@@ -4459,16 +4462,15 @@ def optimizers(card):
 # ----------------------------------------------------------------------
 # train_fcn: FCN-8s semantic segmentation (Deconvolution, Crop, the
 # per-pixel softmax with an ignore label) through Module.fit
-def fcn8s_symbol(num_classes=FCN_CLASSES, widths=(64, 128, 256, 512, 512),
-                 fc=4096, dropout=0.5):
-    """FCN-8s from ``mt.sym`` (upstream ``symbol_fcnxs.py``
-    ``get_fcn8s_symbol``): VGG-16 with ``pad=(100, 100)`` on conv1_1, fc6
-    a 7x7 and fc7 a 1x1 convolution of ``fc``, a 1x1 score head, three
-    Deconvolutions (4x4/2, 4x4/2, 16x16/8, ``adj = stride - 1``, no
-    bias), Crop at (5, 5), (9, 9) and (31, 31) against score_pool4,
-    score_pool3 and data, and SoftmaxOutput over every pixel ignoring
-    label FCN_IGNORE."""
-    sym = mt.sym
+def fcn8s_symbol(sym, num_classes=FCN_CLASSES,
+                 widths=(64, 128, 256, 512, 512), fc=4096, dropout=0.5):
+    """FCN-8s from ``sym`` (either package's; upstream ``symbol_fcnxs.py``
+    ``get_fcn8s_symbol``): VGG-16 at stage widths ``widths`` with
+    ``pad=(100, 100)`` on conv1_1, fc6 a 7x7 and fc7 a 1x1 convolution of
+    ``fc``, a 1x1 score head, three Deconvolutions (4x4/2, 4x4/2, 16x16/8,
+    ``adj = stride - 1``, no bias), Crop at (5, 5), (9, 9) and (31, 31)
+    against score_pool4, score_pool3 and data, and SoftmaxOutput over
+    every pixel ignoring label FCN_IGNORE."""
     data = sym.Variable("data")
     x = data
     pools = []
@@ -4520,21 +4522,25 @@ FCN_DECONV_CROP = ("score2", "score4", "bigscore", "score_pool4c",
                    "score_pool3c", "upscore")
 
 
-def fcn_batch(image, seed=SEED, border=FCN_BORDER):
-    """One synthetic segmentation batch from ``seed``: labels of class 0
-    with five rectangles of random classes and a border of FCN_IGNORE;
-    images N(0, 1) noise plus a brightness a class in each channel."""
+def fcn_batch(shape, num_classes=FCN_CLASSES, seed=SEED, border=FCN_BORDER):
+    """One synthetic segmentation batch of ``shape`` (n, c, h, w) from
+    ``seed``: labels of class 0 with five rectangles of random classes
+    each and a border of FCN_IGNORE ``border`` pixels wide; images N(0, 1)
+    noise plus a brightness a class in each channel."""
     rng = np.random.default_rng(seed)
-    y = np.zeros((1, image, image), np.int32)
-    for _ in range(5):
-        r0, c0 = rng.integers(0, image // 2, 2)
-        h, w = rng.integers(image // 8, image // 2, 2)
-        y[0, r0:r0 + h, c0:c0 + w] = rng.integers(1, FCN_CLASSES)
-    tint = rng.uniform(-1, 1, (FCN_CLASSES, 3)).astype(np.float32)
-    x = rng.standard_normal((1, 3, image, image), dtype=np.float32) \
+    n, c, h, w = shape
+    y = np.zeros((n, h, w), np.int32)
+    for i in range(n):
+        for _ in range(5):
+            r0, c0 = rng.integers(0, (h // 2, w // 2))
+            hh, ww = rng.integers((h // 8, w // 8), (h // 2, w // 2))
+            y[i, r0:r0 + hh, c0:c0 + ww] = rng.integers(1, num_classes)
+    tint = rng.uniform(-1, 1, (num_classes, c)).astype(np.float32)
+    x = rng.standard_normal(shape, dtype=np.float32) \
         + tint[y].transpose(0, 3, 1, 2)
-    y[:, :border] = y[:, -border:] = FCN_IGNORE
-    y[:, :, :border] = y[:, :, -border:] = FCN_IGNORE
+    if border:
+        y[:, :border] = y[:, -border:] = FCN_IGNORE
+        y[:, :, :border] = y[:, :, -border:] = FCN_IGNORE
     return x, y
 
 
@@ -4543,12 +4549,11 @@ def fcn_initializer():
                          [mt.init.Bilinear(), mt.init.Xavier(**FCN_INIT)])
 
 
-def fcn_params(symbol, image, seed=SEED):
-    """Random weights for the float32 check, numpy from ``seed``:
-    He-normal convolutions, the Deconvolutions at 0.1 of it, biases
-    N(0, 0.1)."""
+def fcn_params(symbol, data_shape, seed=SEED):
+    """Random weights for a float32 check, numpy from ``seed``: He-normal
+    convolutions, the Deconvolutions at 0.1 of it, biases N(0, 0.1)."""
     rng = np.random.default_rng(seed)
-    args, _, _ = symbol.infer_shape(data=(1, 3, image, image))
+    args, _, _ = symbol.infer_shape(data=data_shape)
     out = {}
     for n, s in zip(symbol.list_arguments(), args):
         if n in ("data", "softmax_label"):
@@ -4557,7 +4562,7 @@ def fcn_params(symbol, image, seed=SEED):
             out[n] = rng.normal(0, 0.1, s).astype(np.float32)
             continue
         scale = np.sqrt(2.0 / np.prod(s[1:]))
-        if n.startswith(("score2", "score4", "bigscore")):
+        if n.startswith(("score2", "score4", "bigscore", "up2")):
             scale *= 0.1
         out[n] = (rng.standard_normal(s) * scale).astype(np.float32)
     return out
@@ -4568,9 +4573,10 @@ def fcn_step_vs_cpu(lr):
     1 x 3 x FCN_CHECK_IMAGE^2 on the card and on the port's CPU from the
     same weights, SGD as train_fcn's: the step's output, the gradients,
     and every weight after the update, as relative norms."""
-    symbol = fcn8s_symbol(dropout=0.0)
-    arg = fcn_params(symbol, FCN_CHECK_IMAGE)
-    x, y = fcn_batch(FCN_CHECK_IMAGE, border=4)
+    symbol = fcn8s_symbol(mt.sym, dropout=0.0)
+    shape = (1, 3, FCN_CHECK_IMAGE, FCN_CHECK_IMAGE)
+    arg = fcn_params(symbol, shape)
+    x, y = fcn_batch(shape, border=4)
     batch = {"data": x, "softmax_label": y.astype(np.float32)}
     runs = {}
     for side, ctx in (("card", mt.gpu()), ("cpu", mt.cpu())):
@@ -4617,13 +4623,13 @@ def fcn_fit(lr, compute_dtype=None, profile_steps=0):
     ``compute_dtype``), FCN_STEPS steps of one batch at lr ``lr``; the
     replayed steps' kernels in a profiler trace when ``profile_steps``.
     Returns its record and the module."""
-    x, y = fcn_batch(FCN_IMAGE)
+    x, y = fcn_batch((1, 3, FCN_IMAGE, FCN_IMAGE))
     xs = torch.from_numpy(x).cuda()
     ys = torch.from_numpy(y).cuda()
     data = mt.io.NDArrayIter(mt.nd.NDArray(xs.repeat(FCN_STEPS, 1, 1, 1)),
                              mt.nd.NDArray(ys.repeat(FCN_STEPS, 1, 1)),
                              batch_size=1)
-    mod = mt.mod.Module(fcn8s_symbol(), context=mt.gpu(),
+    mod = mt.mod.Module(fcn8s_symbol(mt.sym), context=mt.gpu(),
                         compute_dtype=compute_dtype)
     steps, last = [], {}
 
@@ -4724,7 +4730,7 @@ def fcn_nodes_on_card(mod):
     """One eager float32 forward of the fused module's symbol through an
     executor on the card with the module's weights, every op output
     tapped: the device of each Deconvolution and Crop node's output."""
-    symbol = fcn8s_symbol()
+    symbol = fcn8s_symbol(mt.sym)
     ex = symbol.simple_bind(mt.gpu(), grad_req="null",
                             data=(1, 3, FCN_IMAGE, FCN_IMAGE),
                             softmax_label=(1, FCN_IMAGE, FCN_IMAGE))
@@ -4738,7 +4744,7 @@ def fcn_nodes_on_card(mod):
             seen[node] = (str(arr.data.device), tuple(arr.shape))
 
     ex.install_monitor(tap)
-    x, _ = fcn_batch(FCN_IMAGE)
+    x, _ = fcn_batch((1, 3, FCN_IMAGE, FCN_IMAGE))
     ex.forward(is_train=False, data=x)
     torch.cuda.synchronize()
     del ex
@@ -4751,9 +4757,10 @@ def train_fcn(card, lrs=None):
     float32 at FCN_LR, or first at each of ``lrs`` in turn, then the same
     fit in bfloat16; the Deconvolution and Crop nodes' outputs on the
     card; one float32 step against the port's CPU.  Asserts the fused
-    path, one capture and a replay a step in both dtypes, a falling loss
-    in float32 (bfloat16 weights do not resolve updates at fcn_xs.py's
-    lrs: its loss is reported), none of the port's kernels, every node on
+    path, one capture and a replay a step in both dtypes, a finite loss
+    in both, falling in float32 (in bfloat16 it falls at no lr, in the
+    JAX package as here: it is reported), none of the port's kernels,
+    every node on
     the card and the float32 step within FCN_TOL.  Returns (launches,
     record)."""
     _phase("train_fcn")
@@ -5249,66 +5256,74 @@ LOSS_EXAMPLES = [("fcn-xs", example_fcnxs),
                  ("dec", example_dec)]
 
 
-def run_example(fn, ctx, fused="auto"):
+def run_example(fn, ctx, fused):
     """``fn`` under ``ctx`` from mt.random.seed(SEED), its modules on
     Module's ``fused`` policy (``MXTPU_MODULE_FUSED``): (score, its
     assert held, parameters on the host, seconds)."""
-    before = os.environ.get("MXTPU_MODULE_FUSED")
-    os.environ["MXTPU_MODULE_FUSED"] = fused
     mt.random.seed(SEED)
     t0 = time.perf_counter()
-    try:
-        with ctx:
-            score, ok, params = fn()
-    finally:
-        if before is None:
-            os.environ.pop("MXTPU_MODULE_FUSED")
-        else:
-            os.environ["MXTPU_MODULE_FUSED"] = before
+    with _fused_policy(fused), ctx:
+        score, ok, params = fn()
     if ctx.device_type == "gpu":
         torch.cuda.synchronize()
     return score, bool(ok), params, time.perf_counter() - t0
 
 
+# (run, context, MXTPU_MODULE_FUSED): the card's default path (the fused
+# Trainer, a CUDA graph a step) and the classic executor path, each on
+# the card and on the port's CPU
+EXAMPLE_RUNS = (("card_fused", "gpu", "auto"), ("cpu_fused", "cpu", "always"),
+                ("card_classic", "gpu", "never"),
+                ("cpu_classic", "cpu", "never"))
+
+
 def loss_examples(card):
-    """Each loss-layer example at its own size on the card and on the
-    port's CPU, both on the classic executor path, the JAX package's path
-    for these examples (they bind the CPU; its fused step runs only on a
-    TPU): its end-of-run score against its own assert on both, and the
-    largest relative norm between the two runs' parameters within
-    EXAMPLE_PARAM_TOL.  Beside
-    them, each on the card's default path, the fused Trainer (a CUDA
-    graph a step, its optimizer state made anew at each epoch's end, as
-    the JAX package's fused fit does): its score and whether its assert
-    held, reported.  Returns (launches, records)."""
+    """Each loss-layer example at its own size on both of Module's paths
+    (EXAMPLE_RUNS), on the card and on the port's CPU: its end-of-run
+    score against its own assert in all four runs, and, on each path, the
+    largest relative norm between the card's and the CPU's parameters
+    within EXAMPLE_PARAM_TOL.  The gap between the two paths (the fused
+    Adam rule forms its bias correction in float32, the classic update in
+    float64) is reported.  Returns (launches, records)."""
     _phase("loss_examples")
     reset_launch_counts()
     records, bad = [], []
     for name, fn in LOSS_EXAMPLES:
-        card_score, card_ok, card_params, card_s = run_example(
-            fn, mt.gpu(), "never")
-        cpu_score, cpu_ok, cpu_params, cpu_s = run_example(fn, mt.cpu(),
-                                                           "never")
-        fused_score, fused_ok, _, fused_s = run_example(fn, mt.gpu())
-        rel = _rel_norms(card_params, cpu_params)
-        worst = max(rel, key=rel.get)
-        rec = {"example": name, "card_score": card_score,
-               "cpu_score": cpu_score, "card_fused_score": fused_score,
-               "asserts_held": {"card": card_ok, "cpu": cpu_ok,
-                                "card_fused": fused_ok},
-               "param_rel_err_max": rel[worst], "worst_param": worst,
-               "card_s": card_s, "cpu_s": cpu_s, "card_fused_s": fused_s,
-               "card": card}
+        runs = {run: run_example(fn, mt.Context(dev), policy)
+                for run, dev, policy in EXAMPLE_RUNS}
+        rec = {"example": name, "card": card,
+               "scores": {run: r[0] for run, r in runs.items()},
+               "asserts_held": {run: r[1] for run, r in runs.items()},
+               "seconds": {run: r[3] for run, r in runs.items()}}
+        for label, a, b in (("fused", "card_fused", "cpu_fused"),
+                            ("classic", "card_classic", "cpu_classic"),
+                            ("card_fused_vs_classic", "card_fused",
+                             "card_classic")):
+            rel = _rel_norms(runs[a][2], runs[b][2])
+            worst = max(rel, key=rel.get)
+            rec[label] = {"param_rel_err_max": rel[worst],
+                          "worst_param": worst}
         _emit({"loss_examples": rec})
-        print("loss_examples %s: card %s, CPU %s (parameters %.2e apart, "
-              "%s; tolerance %g); card fused %s (its assert %s); %.1f s "
-              "card, %.1f s CPU, %.1f s fused" % (
-                  name, card_score, cpu_score, rel[worst], worst,
-                  EXAMPLE_PARAM_TOL, fused_score,
-                  "held" if fused_ok else "missed", card_s, cpu_s, fused_s),
+        print("loss_examples %s: fused card %s, CPU %s (parameters %.2e "
+              "apart, %s); classic card %s, CPU %s (%.2e, %s); tolerance "
+              "%g; asserts %s; the card's two paths %.2e apart; s %s" % (
+                  name, rec["scores"]["card_fused"],
+                  rec["scores"]["cpu_fused"],
+                  rec["fused"]["param_rel_err_max"],
+                  rec["fused"]["worst_param"],
+                  rec["scores"]["card_classic"],
+                  rec["scores"]["cpu_classic"],
+                  rec["classic"]["param_rel_err_max"],
+                  rec["classic"]["worst_param"], EXAMPLE_PARAM_TOL,
+                  rec["asserts_held"],
+                  rec["card_fused_vs_classic"]["param_rel_err_max"],
+                  {k: round(v, 1) for k, v in rec["seconds"].items()}),
               flush=True)
         records.append(rec)
-        if not (card_ok and cpu_ok and rel[worst] <= EXAMPLE_PARAM_TOL):
+        if not (all(rec["asserts_held"].values())
+                and rec["fused"]["param_rel_err_max"] <= EXAMPLE_PARAM_TOL
+                and rec["classic"]["param_rel_err_max"]
+                <= EXAMPLE_PARAM_TOL):
             bad.append(name)
     counts = launch_counts()
     if bad:

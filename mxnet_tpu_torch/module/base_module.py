@@ -13,8 +13,9 @@ resume (``checkpoint``, ``checkpoint_period``, ``resume``; see
 distribution slice.
 
 At an epoch's end ``fit`` copies the trained values to the host and
-writes them back (``set_params``), as the JAX package's does; on the
-fused path that also re-creates the optimizer state, as it does there.
+writes them back (``set_params``), as the JAX package's does; the
+optimizer state stays on both paths, where the JAX package's fused path
+re-creates it (ROADMAP §C).
 """
 from __future__ import annotations
 

@@ -209,9 +209,10 @@ class Module(BaseModule):
         self.params_initialized = True
         self._params_dirty = False
         if self._trainer is not None:
-            self._trainer.init_params(arg_params=self._arg_params,
-                                      aux_params=self._aux_params,
-                                      force_init=True)
+            # the values only: the optimizer state (momentum, Adam's
+            # moments) stays, as the classic path's updater keeps it
+            # through fit's epoch-end refresh (ROADMAP §C)
+            self._trainer.set_params(self._arg_params, self._aux_params)
         elif self._exec_group is not None:
             self._exec_group.set_params(self._arg_params, self._aux_params)
         # else: the fused path before init_optimizer; the trainer takes

@@ -372,7 +372,8 @@ class Trainer:
                     force_init=False):
         """Parameters from ``arg_params``/``aux_params`` where given, else
         from ``initializer``, on the trainer's device; then a fresh
-        optimizer state.  A second call writes into the same tensors, so
+        optimizer state (``set_params`` writes the values and keeps the
+        state).  A second call writes into the same tensors, so
         a captured step keeps reading them."""
         if self.params is not None and not force_init:
             return self

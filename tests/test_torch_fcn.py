@@ -26,94 +26,8 @@ TOL = 1e-4
 IGNORE = 255
 
 
-def fcn8s(pkg, num_classes=21, widths=(64, 128, 256, 512, 512), fc=4096,
-          dropout=0.5):
-    """FCN-8s from ``pkg.sym`` (upstream ``symbol_fcnxs.py``
-    ``get_fcn8s_symbol``), VGG-16's stage widths ``widths``."""
-    sym = pkg.sym
-    data = sym.Variable("data")
-    x = data
-    pools = []
-    for stage, (width, depth) in enumerate(zip(widths, (2, 2, 3, 3, 3))):
-        for i in range(depth):
-            name = "conv%d_%d" % (stage + 1, i + 1)
-            pad = (100, 100) if name == "conv1_1" else (1, 1)
-            x = sym.Convolution(x, kernel=(3, 3), pad=pad, num_filter=width,
-                                workspace=1024, name=name)
-            x = sym.Activation(x, act_type="relu",
-                               name="relu%d_%d" % (stage + 1, i + 1))
-        x = sym.Pooling(x, pool_type="max", kernel=(2, 2), stride=(2, 2),
-                        name="pool%d" % (stage + 1))
-        pools.append(x)
-    pool3, pool4, pool5 = pools[2:]
-    x = sym.Convolution(pool5, kernel=(7, 7), num_filter=fc, name="fc6")
-    x = sym.Activation(x, act_type="relu", name="relu6")
-    x = sym.Dropout(x, p=dropout, name="drop6")
-    x = sym.Convolution(x, kernel=(1, 1), num_filter=fc, name="fc7")
-    x = sym.Activation(x, act_type="relu", name="relu7")
-    x = sym.Dropout(x, p=dropout, name="drop7")
-    score = sym.Convolution(x, kernel=(1, 1), num_filter=num_classes,
-                            name="score")
-    score2 = sym.Deconvolution(score, kernel=(4, 4), stride=(2, 2),
-                               adj=(1, 1), num_filter=num_classes,
-                               no_bias=True, name="score2")
-    score_pool4 = sym.Convolution(pool4, kernel=(1, 1),
-                                  num_filter=num_classes, name="score_pool4")
-    score_pool4c = sym.Crop(score_pool4, score2, offset=(5, 5),
-                            name="score_pool4c")
-    score4 = sym.Deconvolution(score2 + score_pool4c, kernel=(4, 4),
-                               stride=(2, 2), adj=(1, 1),
-                               num_filter=num_classes, no_bias=True,
-                               name="score4")
-    score_pool3 = sym.Convolution(pool3, kernel=(1, 1),
-                                  num_filter=num_classes, name="score_pool3")
-    score_pool3c = sym.Crop(score_pool3, score4, offset=(9, 9),
-                            name="score_pool3c")
-    bigscore = sym.Deconvolution(score4 + score_pool3c, kernel=(16, 16),
-                                 stride=(8, 8), adj=(7, 7),
-                                 num_filter=num_classes, no_bias=True,
-                                 name="bigscore")
-    upscore = sym.Crop(bigscore, data, offset=(31, 31), name="upscore")
-    return sym.SoftmaxOutput(upscore, multi_output=True, use_ignore=True,
-                             ignore_label=IGNORE, name="softmax")
-
-
-def fcn_weights(symbol, data_shape, seed=0):
-    """Every argument but data and label from ``seed``: He-normal
-    convolution weights, the Deconvolutions' at 0.1 of it, biases
-    N(0, 0.1), as numpy."""
-    rng = np.random.default_rng(seed)
-    shapes, _, _ = symbol.infer_shape(data=data_shape)
-    out = {}
-    for n, s in zip(symbol.list_arguments(), shapes):
-        if n in ("data", "softmax_label"):
-            continue
-        if n.endswith("_bias"):
-            out[n] = rng.normal(0, 0.1, s).astype(np.float32)
-            continue
-        fan_in = np.prod(s[1:])
-        scale = np.sqrt(2.0 / fan_in)
-        if n.startswith(("score2", "score4", "bigscore", "up2")):
-            scale *= 0.1
-        out[n] = (rng.standard_normal(s) * scale).astype(np.float32)
-    return out
-
-
-def segmentation_batch(shape, num_classes, seed=0, border=2):
-    """Images N(0, 1) and labels: rectangles of random classes on class
-    0, with a border of ``IGNORE``."""
-    rng = np.random.default_rng(seed)
-    n, _, h, w = shape
-    x = rng.standard_normal(shape).astype(np.float32)
-    y = np.zeros((n, h, w), np.float32)
-    for i in range(n):
-        for _ in range(3):
-            r0, c0 = rng.integers(0, h // 2, 2)
-            r1, c1 = r0 + rng.integers(2, h // 2), c0 + rng.integers(2, w // 2)
-            y[i, r0:r1, c0:c1] = rng.integers(1, num_classes)
-    y[:, :border] = y[:, -border:] = IGNORE
-    y[:, :, :border] = y[:, :, -border:] = IGNORE
-    return x, y
+def fcn8s(pkg, **kw):
+    return chip_smoke.fcn8s_symbol(pkg.sym, **kw)
 
 
 def _narrow(pkg):
@@ -122,10 +36,10 @@ def _narrow(pkg):
 
 def test_fcn8s_narrow_matches_jax_and_one_sgd_step():
     shape = (1, 3, 32, 32)
-    x, y = segmentation_batch(shape, 21)
+    x, y = chip_smoke.fcn_batch(shape, border=2)
     with mt.name.NameManager():
-        weights = fcn_weights(_narrow(mt), shape)
-    loc = dict(weights, data=x, softmax_label=y)
+        weights = chip_smoke.fcn_params(_narrow(mt), shape)
+    loc = dict(weights, data=x, softmax_label=y.astype(np.float32))
     port, want = check_against_reference(
         _narrow, loc, tol=TOL,
         grad_nodes=[n for n in weights])
@@ -155,12 +69,7 @@ def test_fcn8s_narrow_matches_jax_and_one_sgd_step():
 def test_fcn8s_infers_the_published_geometry():
     """At 1x3x500x500 with full widths both packages infer upstream's
     maps: score 15^2, score2 33^2, score4 69^2, bigscore 567^2, upscore
-    500^2, and 134,489,759 parameters (shapes only, nothing allocated);
-    ``chip_smoke.py``'s FCN-8s is this graph, node for node."""
-    with mt.name.NameManager():
-        here = fcn8s(mt).tojson()
-    with mt.name.NameManager():
-        assert chip_smoke.fcn8s_symbol().tojson() == here
+    500^2, and 134,489,759 parameters (shapes only, nothing allocated)."""
     shape = (1, 3, 500, 500)
     sizes = {}
     for pkg in (mx, mt):
@@ -192,9 +101,10 @@ def test_fcnxs_toy_matches_jax():
         return chip_smoke.fcnxs_toy_symbol(pkg.sym)
 
     with mt.name.NameManager():
-        weights = fcn_weights(toy(mt), shape, seed=1)
-    x, y = segmentation_batch(shape, 2, seed=1, border=0)
-    check_against_reference(toy, dict(weights, data=x, softmax_label=y),
+        weights = chip_smoke.fcn_params(toy(mt), shape, seed=1)
+    x, y = chip_smoke.fcn_batch(shape, 2, seed=1, border=0)
+    check_against_reference(toy, dict(weights, data=x,
+                                      softmax_label=y.astype(np.float32)),
                             tol=TOL, grad_nodes=list(weights))
 
 
@@ -204,7 +114,8 @@ def test_ignored_pixels_get_no_gradient():
     normalization."""
     rng = np.random.default_rng(2)
     data = rng.standard_normal((2, 5, 6, 7)).astype(np.float32)
-    _, label = segmentation_batch((2, 1, 6, 7), 5, seed=2, border=1)
+    _, label = chip_smoke.fcn_batch((2, 1, 6, 7), 5, seed=2, border=1)
+    label = label.astype(np.float32)
     ignored = label == IGNORE
     assert 0 < ignored.mean() < 1
     for norm in ("null", "batch", "valid"):

@@ -127,27 +127,22 @@ def _mf_fit(fused):
     """One epoch of two batches of the recommender's symbol through
     ``Module.fit`` on the CPU, fed a dict whose sorted order (item, user)
     is not ``data_names``'s (user, item)."""
-    import os
-    os.environ["MXTPU_MODULE_FUSED"] = fused
-    try:
-        mt.random.seed(0)
-        rng = np.random.RandomState(0)
-        with mt.cpu():
-            it = mt.io.NDArrayIter(
-                {"user": rng.randint(0, 40, (128, 1)).astype("f"),
-                 "item": rng.randint(0, 30, (128, 1)).astype("f")},
-                {"score_label": rng.randn(128, 1).astype("f")},
-                batch_size=64)
-            mod = mt.mod.Module(chip_smoke.matrix_fact_symbol(mt.sym),
-                                data_names=("user", "item"),
-                                label_names=("score_label",))
-            mod.fit(it, num_epoch=1, optimizer="adam",
-                    optimizer_params={"learning_rate": 0.02},
-                    initializer=mt.init.Normal(0.3))
-            assert (mod._trainer is not None) == (fused == "always")
-            return {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
-    finally:
-        os.environ.pop("MXTPU_MODULE_FUSED")
+    mt.random.seed(0)
+    rng = np.random.RandomState(0)
+    with chip_smoke._fused_policy(fused), mt.cpu():
+        it = mt.io.NDArrayIter(
+            {"user": rng.randint(0, 40, (128, 1)).astype("f"),
+             "item": rng.randint(0, 30, (128, 1)).astype("f")},
+            {"score_label": rng.randn(128, 1).astype("f")},
+            batch_size=64)
+        mod = mt.mod.Module(chip_smoke.matrix_fact_symbol(mt.sym),
+                            data_names=("user", "item"),
+                            label_names=("score_label",))
+        mod.fit(it, num_epoch=1, optimizer="adam",
+                optimizer_params={"learning_rate": 0.02},
+                initializer=mt.init.Normal(0.3))
+        assert (mod._trainer is not None) == (fused == "always")
+        return {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
 
 
 def test_the_fused_step_reads_a_batch_by_its_bound_names():

@@ -75,18 +75,27 @@ def test_transformer_lm_learns_through_the_fused_trainer(fused):
 
 
 def _fit_both(num_epoch, n, seed):
-    """``Module.fit`` on both packages' fused paths from the same initial
-    weights, SGD with momentum: (the JAX package's params, the port's)."""
+    """``Module.fit`` on the port's fused path, and on the JAX package's
+    fused Module the same epochs' batches stepped one by one by
+    ``forward``/``update`` (its ``fit`` re-creates the optimizer state at
+    an epoch's end; ROADMAP §C), from the same initial weights, SGD with
+    momentum: (the JAX package's params, the port's)."""
     x, y = _cyclic(n=n, seed=seed)
     jsym = jax_models.get_symbol("transformer", **LM)
     init = _init_params(jsym)
     opt = dict(optimizer="sgd",
                optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    jit = mx.io.NDArrayIter(x, y, batch_size=32)
     jmod = mx.mod.Module(jsym, context=mx.cpu())
-    jmod.fit(mx.io.NDArrayIter(x, y, batch_size=32), num_epoch=num_epoch,
-             arg_params={k: mx.nd.array(v) for k, v in init.items()},
-             eval_metric=mx.metric.Perplexity(None), **opt)
+    jmod.bind(jit.provide_data, jit.provide_label)
+    jmod.init_params(arg_params={k: mx.nd.array(v) for k, v in init.items()})
+    jmod.init_optimizer(**opt)
     assert jmod._trainer is not None
+    for _ in range(num_epoch):
+        for batch in jit:
+            jmod.forward(batch, is_train=True)
+            jmod.update()
+        jit.reset()
     with mt.cpu():
         mod = Module(mt.models.transformer.get_symbol(**LM))
         mod.fit(_port_iter(x, y), num_epoch=num_epoch,
@@ -109,10 +118,12 @@ def test_one_epoch_matches_the_jax_fused_module(fused):
 
 
 def test_two_epochs_match_the_jax_fused_module(fused):
-    """Two epochs: at the first one's end both packages' ``fit`` write the
-    trained values back with ``set_params``, which on the fused path
-    re-creates the optimizer state (here the momentum).  An epoch end
-    that kept the momentum ends a median 0.3 apart by relative norm."""
+    """Two epochs: at the first one's end the port's ``fit`` writes the
+    trained values back with ``set_params`` and keeps the optimizer state
+    (here the momentum), as the classic path does: it ends where the JAX
+    package's fused step, run over the same batches, ends.  An epoch end
+    that re-created the momentum, as the JAX package's ``fit`` does, ends
+    a median 0.3 apart by relative norm."""
     want, got = _fit_both(2, n=64, seed=2)
     for k, w in want.items():
         assert np.linalg.norm(got[k] - w) <= REL_TOL * np.linalg.norm(w), k
@@ -184,8 +195,8 @@ def test_optimizer_states_and_sentinel_through_the_module(fused, monkeypatch,
         sym = mt.models.transformer.get_symbol(**LM)
         mod = Module(sym)
         mod.fit(_port_iter(x, y), num_epoch=1, optimizer="adam")
-        # a step after the epoch's end, whose set_params re-created the
-        # state, so the state saved below is not all zeros
+        # a step after the epoch's end: the state saved below is the
+        # one of the third update
         mod.forward(next(iter(_port_iter(x, y))), is_train=True)
         mod.update()
     assert mod.sentinel_skips == 0
