@@ -166,7 +166,40 @@ fails:
 22. op_sweep_card: every case of ``tests/test_op_sweep.py``'s table whose
    op the port registers, forward and backward on the card against the
    CPU within the case's tolerance;
-23. times: each kernel, its plain version and the PyTorch library call
+23. dist_one_rank_nccl: ``tools/launch.py -n 1`` starts one worker,
+   which joins a one-rank ``torch.distributed`` group over NCCL at import
+   and fits the ResNet cell of train_resnet_bf16 twice: without a store,
+   and with ``dist_sync_tpu``, whose fused step spans the one-rank mesh:
+   one capture, the NCCL all-reduce among a traced replay's kernels
+   (printed), the parameters and moving statistics bitwise the run's
+   without a store; step ms and img/s beside train_resnet_bf16's;
+24. dist_two_ranks_shared_card: ``tools/launch.py -n 2``, two ranks over
+   gloo, both on card 0: the classic ``dist_sync`` path on the MLP and
+   LeNet, then the fused step over the two-rank mesh on ResNet-50 at
+   full width (DIST_SHARED_BATCH rows a rank, bench.py's global batch,
+   bfloat16) at zero=0, zero=1 and with the bfloat16 wire, uncaptured
+   (the collectives are the host's): every run's parameters bitwise
+   alike on both ranks; the classic runs within DIST_CLASSIC_TOL of one
+   process over the same global batches, and ResNet-50 (BatchNorm over
+   the whole global batch) within DIST_RESNET_TOL of one process
+   stepping the global batch; zero=1 bitwise zero=0, the bfloat16 wire
+   within 2^-8 an element; each step's ms and the collectives' share of
+   it; then dist_across_cards, a rank a card over NCCL (the MLP's and a
+   convolution-BatchNorm net's fused steps at zero 0 and 1 and with the
+   bfloat16 wire, captured, against one process), which runs only where
+   the machine has two cards or more;
+25. multi_context: ``Module(context=[gpu(0), gpu(0)])`` on the classic
+   path (two executors, half a batch each, the store merging their
+   gradients) against one context over the same batches, MLP and LeNet;
+26. remat: the fused bfloat16 step of GPT-2 small and of ResNet-50 at
+   batch 256 under each remat policy (none, convs_dots, dots, nothing):
+   the first step's gradients against none's, step ms, peak memory, K1
+   and B2 launches a step; GPT-2's MLP block with a Dropout under
+   ``nothing`` through capture and replays, where the recompute draws
+   the forward's masks; and ``donate_batch=True`` fed the rows of one
+   on-card dataset in turn (left as they were) and whole batch tensors
+   (each emptied after its step), bitwise a trainer that keeps them;
+27. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
@@ -177,11 +210,14 @@ the last line names the device.
 """
 import gc
 import importlib.util
+import hashlib
 import json
 import math
 import os
 import queue
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2530,13 +2566,13 @@ def train_resnet_vs_cpu():
     return launches
 
 
-def resnet_cell():
+def resnet_cell(kvstore="local"):
     """The tentpole cell's module and data: a Module on ``gpu(0)`` with
     bfloat16 compute, bound, initialised (Xavier gaussian, from SEED) and
-    with bench.py's SGD installed; an NDArrayIter of RESNET_STEPS copies
-    of one batch of N(0, 1) images and int32 labels, made on the card from
-    SEED.  Returns (module, iterator, the batch's images and labels,
-    set-up seconds)."""
+    with bench.py's SGD and ``kvstore`` installed; an NDArrayIter of
+    RESNET_STEPS copies of one batch of N(0, 1) images and int32 labels,
+    made on the card from SEED.  Returns (module, iterator, the batch's
+    images and labels, set-up seconds)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
     x = torch.randn(shape, generator=gen, device="cuda")
@@ -2551,7 +2587,7 @@ def resnet_cell():
     t0 = time.perf_counter()
     mod.bind(data.provide_data, data.provide_label)
     mod.init_params(mt.init.Xavier(**RESNET_INIT))
-    mod.init_optimizer(kvstore="local", optimizer="sgd",
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
                        optimizer_params=RESNET_SGD)
     torch.cuda.synchronize()
     if mod._trainer is None:
@@ -5733,6 +5769,788 @@ def rtc_times():
     return records["gelu"]
 
 
+# ----------------------------------------------------------------------
+# data-parallel training over worker processes, several contexts in one
+# Module, and the fused step's remat policies
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DIST_TIMEOUT_S = 600
+# the collective's kernels in a traced replay: NCCL's, and the one-rank
+# reduce NCCL launches for a PREMUL_SUM over one rank
+DIST_KERNEL_RE = re.compile(r"nccl|onerank", re.IGNORECASE)
+# dist_two_ranks_shared_card: each rank's rows of ResNet-50's global
+# batch (bench.py's 256, two ranks on the card), the steps of each run,
+# the steps of the classic runs (MLP, LeNet: batch DIST_SMALL_BATCH a
+# step, global)
+DIST_SHARED_BATCH, DIST_SHARED_STEPS = RESNET_BATCH // 2, 3
+DIST_SMALL_BATCH, DIST_SMALL_STEPS = 64, 4
+# the float32 runs against one process over the same global batches
+# (relative norm over every parameter): each gradient summed over the
+# ranks in another order
+DIST_CLASSIC_TOL = 1e-5
+# ResNet-50 in bfloat16 against one process over the whole global batch,
+# after its first step and after DIST_SHARED_STEPS: each rank's weight
+# gradients are rounded to bfloat16 before the float32 sum over the
+# ranks, one process's once over every row.  Read 1.28e-3 and 9.04e-3
+# on the card; normalising BatchNorm by each rank's rows reads 0.141
+# after the first step
+DIST_RESNET_TOL = (4e-3, 3e-2)
+# the bfloat16 wire: each element of the summed gradient within 2^-8 of
+# the float32 sum, relative to the sum of the ranks' magnitudes (two
+# half-ulp roundings of bfloat16, lowp_allreduce's bound)
+WIRE_TOL = 2.0 ** -8
+MULTI_CONTEXT_TOL = 1e-5
+REMAT_POLICIES = ("none", "convs_dots", "dots", "nothing")
+REMAT_STEPS = 5          # an eager step, the capture, 3 replays
+# each policy's first-step float32 gradients against none's on the same
+# weights and batch (relative norm per parameter, the largest): the same
+# bfloat16 work recomputed; bitwise in every chip run so far, and a
+# recompute that drew other BatchNorm statistics would be far above it
+REMAT_GRAD_TOL = {"gpt2-small": 1e-5, "resnet-50": 1e-5}
+REMAT_DROPOUT_TOL = 1e-6
+
+
+def _card_flags():
+    """The float32 settings the environment phase makes, in a worker."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def run_workers(n, case):
+    """``python tools/launch.py -n N --launcher local -- python3
+    chip_smoke.py dist_child <case> <dir>``: the launcher's workers join
+    one ``torch.distributed`` group at import.  Returns each rank's
+    result (``<dir>/rank<r>.json``) and the wall seconds.  A worker that
+    fails fails the phase; on a timeout the whole process group is
+    killed."""
+    out = tempfile.mkdtemp(prefix="mxtpu-dist-")
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "launch.py"),
+           "-n", str(n), "--launcher", "local", "--", sys.executable,
+           os.path.abspath(__file__), "dist_child", case, out]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True)
+    try:
+        code = proc.wait(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
+        raise AssertionError("%s: the workers ran past %d s"
+                             % (case, DIST_TIMEOUT_S))
+    try:
+        if code != 0:
+            raise AssertionError("%s: the launcher exited %d" % (case, code))
+        results = []
+        for r in range(n):
+            with open(os.path.join(out, "rank%d.json" % r)) as f:
+                results.append(json.load(f))
+        return results, time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def dist_child(case, out):
+    """A launcher's worker: run ``case`` and write this rank's result."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    _card_flags()
+    rank = coll._process_index()
+    res = DIST_CASES[case](out)
+    res.update(rank=rank, world=coll._process_count(),
+               backend=coll.backend(),
+               device=torch.cuda.current_device())
+    with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    coll.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _digest(tensors):
+    """sha256 of the tensors' bytes in name order (bitwise comparison
+    across processes)."""
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        h.update(tensors[n].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rel_all(got, want):
+    """Relative norm of the difference over every array together."""
+    num = sum(float((got[n].double() - want[n].double()).norm() ** 2)
+              for n in want)
+    den = sum(float(want[n].double().norm() ** 2) for n in want)
+    return math.sqrt(num / den)
+
+
+def _timed_fit(mod, data, kvstore):
+    """``Module.fit`` of the ResNet cell, one epoch; the seconds of each
+    step between synchronised ``batch_end_callback``s."""
+    steps, last = [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append(now - last["t"])
+        last["t"] = now
+
+    torch.cuda.synchronize()
+    last["t"] = time.perf_counter()
+    mod.fit(data, num_epoch=1, kvstore=kvstore, optimizer="sgd",
+            optimizer_params=RESNET_SGD,
+            initializer=mt.init.Xavier(**RESNET_INIT),
+            eval_metric=mt.metric.CrossEntropy(),
+            batch_end_callback=on_batch)
+    return steps
+
+
+def _dist_one_rank_nccl(out):
+    """One rank over NCCL: the ResNet cell fit without a store, then with
+    ``dist_sync_tpu``, whose fused step spans the one-rank mesh and
+    issues its gradient sum in the captured graph."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    if (coll.backend(), coll._process_count()) != ("nccl", 1):
+        raise AssertionError("one rank over NCCL expected, got %s over %d"
+                             % (coll.backend(), coll._process_count()))
+    res, params = {}, {}
+    for kv in ("local", "dist_sync_tpu"):
+        reset_launch_counts()
+        mod, data, x, y, _ = resnet_cell(kvstore=kv)
+        tr = mod._trainer
+        steps = _timed_fit(mod, data, kv)
+        params[kv] = {n: v.clone() for n, v in
+                      list(tr.params.items()) + list(tr.aux.items())}
+        rec = {"comm": tr._comm, "graph_captures": tr.graph_captures,
+               "graph_replays": tr.graph_replays,
+               "step_ms": statistics.median(steps[2:]) * 1e3,
+               "img_per_s": RESNET_BATCH / statistics.median(steps[2:]),
+               "launches": launch_counts()}
+        if kv != "local":
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                tr.step({"data": x, "softmax_label": y})
+                torch.cuda.synchronize()
+            names = sorted({e.key for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA})
+            rec["kernels"] = len(names)
+            rec["collective_kernels"] = [k for k in names
+                                         if DIST_KERNEL_RE.search(k)]
+        res[kv] = rec
+        del mod, data, tr, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = params["local"], params["dist_sync_tpu"]
+    res["bitwise"] = all(torch.equal(a[n], b[n]) for n in a)
+    res["rel_err"] = _rel_all(b, a)
+    return res
+
+
+def _small_net(name):
+    if name == "mlp":
+        return _opt_mlp(), (784,)
+    return mt.models.get_symbol("lenet", num_classes=10), (1, 28, 28)
+
+
+def _small_data(name, steps, batch):
+    """Batches and initial weights of the MLP or LeNet, numpy from SEED."""
+    symbol, shape = _small_net(name)
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.standard_normal((steps * batch,) + shape, dtype=np.float32)
+    y = rng.integers(0, 10, steps * batch).astype(np.float32)
+    shapes, _, _ = symbol.infer_shape(data=(batch,) + shape)
+    init = {n: rng.standard_normal(s, dtype=np.float32) * np.float32(0.05)
+            for n, s in zip(symbol.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    return symbol, x, y, init
+
+
+def _small_fit(name, x, y, init, batch, kvstore, contexts=None):
+    """``Module.fit`` of the MLP or LeNet on the classic path, one epoch;
+    the trained parameters on the host."""
+    symbol, _ = _small_net(name)
+    with _fused_policy("never"):
+        it = mt.io.NDArrayIter(x, y, batch_size=batch)
+        mod = mt.mod.Module(symbol, context=contexts or mt.gpu())
+        mod.fit(it, num_epoch=1, kvstore=kvstore, optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+                arg_params={n: mt.nd.array(v) for n, v in init.items()})
+    if mod._trainer is not None:
+        raise AssertionError("the classic path was asked for")
+    arg, _ = mod.get_params()
+    return mod, {n: v.data.clone().cpu() for n, v in arg.items()}
+
+
+def _rows(a, rank, n, batch):
+    """Rank ``rank``'s rows of every global batch of ``a``."""
+    per = batch // n
+    return np.concatenate([a[s * batch + rank * per:
+                             s * batch + (rank + 1) * per]
+                           for s in range(len(a) // batch)])
+
+
+def _resnet_dist_trainer(zero, wire, batch, mesh=True):
+    """The ResNet cell's fused Trainer at ``batch`` rows a rank, over the
+    two-rank mesh (or alone), its gradients scaled by the global batch."""
+    mt.random.seed(SEED)
+    tr = mt.parallel.Trainer(
+        mt.models.get_symbol("resnet-50", **RESNET),
+        mt.optimizer.create("sgd", rescale_grad=1.0 / (2 * DIST_SHARED_BATCH),
+                            **RESNET_SGD),
+        mesh=mt.parallel.data_parallel_mesh() if mesh else None,
+        zero=zero, grad_dtype=wire, compute_dtype="bfloat16")
+    tr.bind(data_shapes={"data": (batch, RESNET_IMAGE, RESNET_IMAGE, 3)},
+            label_shapes={"softmax_label": (batch,)})
+    tr.init_params(mt.init.Xavier(**RESNET_INIT))
+    return tr
+
+
+def _wire_check(batch):
+    """The bfloat16 wire against the float32 sum on the first batch:
+    every element's error relative to the sum of the ranks' magnitudes."""
+    tr = _resnet_dist_trainer(0, "bf16", DIST_SHARED_BATCH)
+    batch_dev = tr._device_batch(batch)
+    with torch.no_grad():
+        aux = [tr.aux[n] for n in tr.aux_names]
+        with mt.parallel.trainer._float32_sums():
+            _, _, g = tr._accum_backward(tr.params, aux, batch_dev, None)
+        wire = tr._lowp_sum(g)
+        exact = tr._allreduce_flat(g)
+        mag = tr._allreduce_flat({n: v.abs() for n, v in g.items()})
+    worst = max(float(((wire[n] - exact[n]).abs()
+                       / mag[n].clamp(min=1e-30)).max()) for n in g)
+    del tr, g, wire, exact, mag
+    return worst
+
+
+def _dist_two_ranks_shared(out):
+    """Two ranks over gloo on one card: the classic dist_sync path on the
+    MLP and LeNet, the fused step over the two-rank mesh on ResNet-50 at
+    zero 0 and 1 and with the bfloat16 wire (uncaptured: the host-side
+    collective)."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    rank, n = coll._process_index(), coll._process_count()
+    if (coll.backend(), n, torch.cuda.current_device()) != ("gloo", 2, 0):
+        raise AssertionError("two ranks over gloo on card 0 expected")
+    res = {}
+    for name in ("mlp", "lenet"):
+        symbol, x, y, init = _small_data(name, DIST_SMALL_STEPS,
+                                         DIST_SMALL_BATCH)
+        per = DIST_SMALL_BATCH // n
+        t0 = time.perf_counter()
+        _, got = _small_fit(name, _rows(x, rank, n, DIST_SMALL_BATCH),
+                            _rows(y, rank, n, DIST_SMALL_BATCH), init, per,
+                            "dist_sync")
+        rec = {"digest": _digest(got), "fit_s": time.perf_counter() - t0}
+        coll.barrier()
+        if rank == 0:
+            _, one = _small_fit(name, x, y, init, DIST_SMALL_BATCH, "local")
+            rec["rel_err_vs_one_process"] = _rel_all(got, one)
+        coll.barrier()
+        res[name] = rec
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b = DIST_SHARED_BATCH
+    x = torch.randn((2 * b, RESNET_IMAGE, RESNET_IMAGE, 3), generator=gen,
+                    device="cuda")
+    y = torch.randint(0, RESNET["num_classes"], (2 * b,), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    mine = {"data": x[rank * b:(rank + 1) * b],
+            "softmax_label": y[rank * b:(rank + 1) * b]}
+    res["wire_err_max"] = _wire_check(mine)
+    for zero, wire in ((0, "f32"), (1, "f32"), (0, "bf16")):
+        tr = _resnet_dist_trainer(zero, wire, b)
+        steps, comm = [], []
+        for _ in range(DIST_SHARED_STEPS):
+            torch.cuda.synchronize()
+            c0, t0 = tr.comm_s, time.perf_counter()
+            tr.step(mine)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            comm.append(tr.comm_s - c0)
+        res["z%d_%s" % (zero, wire)] = {
+            "digest": _digest(dict(list(tr.params.items())
+                                   + list(tr.aux.items()))),
+            "step_ms": [t * 1e3 for t in steps],
+            "comm_ms": [c * 1e3 for c in comm],
+            "comm_share": sum(comm[1:]) / sum(steps[1:]),
+            "graph_captures": tr.graph_captures,
+            "state_bytes": tr.opt_state_bytes_per_chip(),
+            "wire_bytes": tr.grad_comm_bytes_per_step()}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["deterministic"] = _shared_vs_one_process(mine, x, y)
+    return res
+
+
+def _shared_vs_one_process(mine, x, y):
+    """The two-rank fused step (zero=0, float32 wire: BatchNorm over the
+    whole global batch) against one process stepping the global batch,
+    cuDNN's deterministic algorithms on both sides: the relative gap over
+    every parameter after each step."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr = _resnet_dist_trainer(0, "f32", DIST_SHARED_BATCH)
+        ranks = []
+        for _ in range(DIST_SHARED_STEPS):
+            tr.step(mine)
+            ranks.append({k: v.clone() for k, v in tr.params.items()})
+        rec = {"digest": _digest(ranks[-1])}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        coll.barrier()
+        if coll._process_index() == 0:
+            whole = _resnet_dist_trainer(0, "f32", 2 * DIST_SHARED_BATCH,
+                                         mesh=False)
+            gaps = []
+            for ours in ranks:
+                whole.step({"data": x, "softmax_label": y})
+                gaps.append(_rel_all(ours, whole.params))
+            rec["whole_batch_rel_err"] = gaps
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        coll.barrier()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return rec
+
+
+def _conv_bn_symbol():
+    """A convolution, BatchNorm and a head: under a data mesh's float32
+    wire BatchNorm sums its statistics over the ranks inside the
+    captured step."""
+    net = mt.sym.Convolution(mt.sym.Variable("data"), num_filter=16,
+                             kernel=(3, 3), pad=(1, 1), layout="NHWC",
+                             name="c1")
+    net = mt.sym.BatchNorm(net, fix_gamma=False, name="bn1")
+    net = mt.sym.Activation(net, act_type="relu")
+    net = mt.sym.FullyConnected(mt.sym.Flatten(net), num_hidden=10,
+                                name="fc")
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def _across_cards_trainer(name, batch, **kw):
+    """The MLP's or the convolution-BatchNorm net's fused float32 Trainer
+    at ``batch`` rows, from the same weights on every rank."""
+    if name == "mlp":
+        symbol, _, _, init = _small_data("mlp", DIST_SMALL_STEPS,
+                                         DIST_SMALL_BATCH)
+        shape = (784,)
+    else:
+        symbol, shape = _conv_bn_symbol(), (8, 8, 3)
+        rng = np.random.default_rng(SEED + 6)
+        shapes, _, _ = symbol.infer_shape(data=(batch,) + shape)
+        init = {n: rng.standard_normal(s, dtype=np.float32)
+                * np.float32(0.1)
+                for n, s in zip(symbol.list_arguments(), shapes)
+                if n not in ("data", "softmax_label")}
+    tr = mt.parallel.Trainer(
+        symbol, mt.optimizer.create("sgd", learning_rate=0.05, momentum=0.9,
+                                    rescale_grad=1.0 / DIST_SMALL_BATCH),
+        **kw)
+    tr.bind(data_shapes={"data": (batch,) + shape},
+            label_shapes={"softmax_label": (batch,)})
+    tr.init_params(arg_params=init)
+    return tr
+
+
+def _dist_ranks_across_cards(out):
+    """A rank a card over NCCL: the MLP's fused step over the mesh of
+    every rank at zero 0 and 1 and with the bfloat16 wire, and the
+    convolution-BatchNorm net's at zero 0 and 1 (its statistics summed
+    over the ranks inside the step), captured with their collectives;
+    rank 0 also steps one process over the global batches."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    rank, n = coll._process_index(), coll._process_count()
+    if (coll.backend(), torch.cuda.current_device()) != ("nccl", rank):
+        raise AssertionError("NCCL with a card a rank expected")
+    per = DIST_SMALL_BATCH // n
+    res = {}
+    for net in ("mlp", "conv_bn"):
+        if net == "mlp":
+            _, x, y, _ = _small_data("mlp", DIST_SMALL_STEPS,
+                                     DIST_SMALL_BATCH)
+        else:
+            rng = np.random.default_rng(SEED + 7)
+            x = rng.standard_normal((DIST_SMALL_STEPS * DIST_SMALL_BATCH,
+                                     8, 8, 3), dtype=np.float32)
+            y = rng.integers(0, 10, len(x)).astype(np.float32)
+        xs = _rows(x, rank, n, DIST_SMALL_BATCH)
+        ys = _rows(y, rank, n, DIST_SMALL_BATCH)
+        one = None
+        if rank == 0:
+            tr = _across_cards_trainer(net, DIST_SMALL_BATCH)
+            for s in range(DIST_SMALL_STEPS):
+                b = DIST_SMALL_BATCH
+                tr.step({"data": x[s * b:(s + 1) * b],
+                         "softmax_label": y[s * b:(s + 1) * b]})
+            one = dict(list(tr.params.items()) + list(tr.aux.items()))
+        runs = ((0, "f32"), (1, "f32"), (0, "bf16")) if net == "mlp" \
+            else ((0, "f32"), (1, "f32"))
+        for zero, wire in runs:
+            tr = _across_cards_trainer(
+                net, per, mesh=mt.parallel.data_parallel_mesh(), zero=zero,
+                grad_dtype=wire)
+            for s in range(DIST_SMALL_STEPS):
+                tr.step({"data": xs[s * per:(s + 1) * per],
+                         "softmax_label": ys[s * per:(s + 1) * per]})
+            mine = dict(list(tr.params.items()) + list(tr.aux.items()))
+            rec = {"digest": _digest(mine),
+                   "graph_captures": tr.graph_captures,
+                   "graph_replays": tr.graph_replays}
+            if one is not None:
+                rec["rel_err_vs_one_process"] = _rel_all(mine, one)
+            key = "z%d_%s" % (zero, wire)
+            res[key if net == "mlp" else "%s_%s" % (net, key)] = rec
+    return res
+
+
+DIST_CASES = {"one_rank_nccl": _dist_one_rank_nccl,
+              "two_ranks_shared": _dist_two_ranks_shared,
+              "ranks_across_cards": _dist_ranks_across_cards}
+
+
+def dist_one_rank_nccl(card, resnet_record):
+    """``tools/launch.py -n 1``: one rank over NCCL trains the ResNet cell
+    through ``Module.fit`` with ``dist_sync_tpu``.  Holds one capture,
+    the NCCL all-reduce in a traced replay, and the parameters bitwise
+    those of the same fit without a store (the sum over one rank is an
+    identity)."""
+    _phase("dist_one_rank_nccl")
+    (res,), wall = run_workers(1, "one_rank_nccl")
+    dist, local = res["dist_sync_tpu"], res["local"]
+    record = {"dist_one_rank_nccl": "resnet-50 bf16 batch %d" % RESNET_BATCH,
+              "backend": res["backend"], "comm": dist["comm"],
+              "graph_captures": dist["graph_captures"],
+              "collective_kernels": dist["collective_kernels"],
+              "step_ms": dist["step_ms"], "img_per_s": dist["img_per_s"],
+              "no_store_step_ms": local["step_ms"],
+              "train_resnet_bf16_step_ms": resnet_record["step_ms"],
+              "train_resnet_bf16_img_per_s": resnet_record["img_per_s"],
+              "bitwise": res["bitwise"], "rel_err": res["rel_err"],
+              "wall_s": wall, "card": card}
+    _emit(record)
+    print("dist_one_rank_nccl (%s): %s; step %.2f ms (%.1f img/s), without "
+          "a store %.2f ms, train_resnet_bf16 %.2f ms (%.1f img/s); "
+          "collective kernels in a replay: %s"
+          % (card, res["backend"], dist["step_ms"], dist["img_per_s"],
+             local["step_ms"], resnet_record["step_ms"],
+             resnet_record["img_per_s"], dist["collective_kernels"]),
+          flush=True)
+    if not (dist["comm"] and dist["graph_captures"] == 1
+            and local["graph_captures"] == 1
+            and dist["collective_kernels"] and res["bitwise"]):
+        raise AssertionError("dist_one_rank_nccl: %s" % record)
+    for rec in (dist, local):
+        expect_launches("dist_one_rank_nccl", rec["launches"])
+    return dist["launches"], record
+
+
+def dist_two_ranks_shared_card(card):
+    """``tools/launch.py -n 2``: two ranks over gloo on one card.  Holds
+    the ranks bitwise alike on every run; the classic runs within
+    DIST_CLASSIC_TOL of one process over the same global batches, the
+    fused ResNet-50 run within DIST_RESNET_TOL of one process stepping
+    the global batch; zero=1 bitwise zero=0; the bfloat16 wire within
+    WIRE_TOL a summed element."""
+    _phase("dist_two_ranks_shared_card")
+    ranks, wall = run_workers(2, "two_ranks_shared")
+    r0, r1 = ranks
+    runs = ("mlp", "lenet", "z0_f32", "z1_f32", "z0_bf16", "deterministic")
+    alike = {k: r0[k]["digest"] == r1[k]["digest"] for k in runs}
+    record = {"dist_two_ranks_shared_card": "two ranks, one card, gloo",
+              "backends": [r["backend"] for r in ranks],
+              "devices": [r["device"] for r in ranks],
+              "ranks_bitwise": alike,
+              "classic_rel_err": {k: r0[k]["rel_err_vs_one_process"]
+                                  for k in ("mlp", "lenet")},
+              "resnet_vs_one_process":
+                  r0["deterministic"]["whole_batch_rel_err"],
+              "zero1_bitwise_zero0":
+                  r0["z1_f32"]["digest"] == r0["z0_f32"]["digest"],
+              "wire_err_max": max(r["wire_err_max"] for r in ranks),
+              "runs": {k: {f: r0[k][f] for f in (
+                  "step_ms", "comm_ms", "comm_share", "graph_captures",
+                  "state_bytes", "wire_bytes")}
+                  for k in ("z0_f32", "z1_f32", "z0_bf16")},
+              "classic_fit_s": {k: r0[k]["fit_s"] for k in ("mlp", "lenet")},
+              "wall_s": wall, "card": card}
+    _emit(record)
+    one = record["resnet_vs_one_process"]
+    print("dist_two_ranks_shared_card (%s): ranks bitwise %s; against one "
+          "process, classic %s, resnet-50 over the global batch %s after "
+          "each step (bounds %s after the first and the last); zero=1 "
+          "bitwise zero=0 %s; bfloat16 wire %.4g of 2^-8"
+          % (card, alike, record["classic_rel_err"],
+             ["%.4g" % g for g in one], DIST_RESNET_TOL,
+             record["zero1_bitwise_zero0"],
+             record["wire_err_max"] / WIRE_TOL), flush=True)
+    for k, rec in record["runs"].items():
+        print("dist_two_ranks_shared_card %s (%s): steps %s ms, collectives "
+              "%s ms, %.1f%% of a step after the first"
+              % (k, card, ["%.1f" % v for v in rec["step_ms"]],
+                 ["%.1f" % v for v in rec["comm_ms"]],
+                 100 * rec["comm_share"]), flush=True)
+    bad = [k for k, v in alike.items() if not v]
+    if (bad or record["backends"] != ["gloo", "gloo"]
+            or record["devices"] != [0, 0]
+            or max(record["classic_rel_err"].values()) > DIST_CLASSIC_TOL
+            or one[0] > DIST_RESNET_TOL[0] or one[-1] > DIST_RESNET_TOL[1]
+            or not record["zero1_bitwise_zero0"]
+            or record["wire_err_max"] > WIRE_TOL
+            or any(r["graph_captures"] for r in record["runs"].values())):
+        raise AssertionError("dist_two_ranks_shared_card: %s" % record)
+    return record
+
+
+def multi_context(card):
+    """One process, ``Module(context=[gpu(0), gpu(0)])`` on the classic
+    path (two executors on one card, each on half of every batch, their
+    gradients merged by the store) against one context over the same
+    batches, the MLP and LeNet."""
+    _phase("multi_context")
+    record = {"multi_context": "[gpu(0), gpu(0)] vs gpu(0)", "card": card}
+    reset_launch_counts()
+    for name in ("mlp", "lenet"):
+        _, x, y, init = _small_data(name, DIST_SMALL_STEPS, DIST_SMALL_BATCH)
+        two_mod, two = _small_fit(name, x, y, init, DIST_SMALL_BATCH, "local",
+                                  contexts=[mt.gpu(0), mt.gpu(0)])
+        if len(two_mod._exec_group.execs) != 2 or two_mod._kvstore is None:
+            raise AssertionError("two contexts bound %d executors"
+                                 % len(two_mod._exec_group.execs))
+        _, one = _small_fit(name, x, y, init, DIST_SMALL_BATCH, "local")
+        record[name] = _rel_all(two, one)
+    _emit(record)
+    print("multi_context (%s): mlp %.3g, lenet %.3g from one context"
+          % (card, record["mlp"], record["lenet"]), flush=True)
+    if max(record["mlp"], record["lenet"]) > MULTI_CONTEXT_TOL:
+        raise AssertionError("multi_context: %s" % record)
+    launches = launch_counts()
+    expect_launches("multi_context", launches)
+    return launches, record
+
+
+def _remat_cells():
+    """The two remat cells: (name, symbol, batch, optimizer, initial
+    weights on the host)."""
+    x, y = cyclic_tokens(BATCH, np.random.default_rng(SEED + 3), np.int32)
+    lm = mt.models.transformer.get_symbol(**GPT2_SMALL)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    img = torch.randn((RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3),
+                      generator=gen, device="cuda")
+    lab = torch.randint(0, RESNET["num_classes"], (RESNET_BATCH,),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    return [("gpt2-small", lm,
+             {"data": torch.from_numpy(x).cuda(),
+              "softmax_label": torch.from_numpy(y).cuda()},
+             ("adam", {"learning_rate": TRAIN_LR}), mt.init.Xavier(
+                 **TRAIN_INIT)),
+            ("resnet-50", mt.models.get_symbol("resnet-50", **RESNET),
+             {"data": img, "softmax_label": lab},
+             ("sgd", dict(RESNET_SGD)), mt.init.Xavier(**RESNET_INIT))]
+
+
+def _remat_trainer(symbol, batch, opt, policy, arg=None, init=None):
+    name, kw = opt
+    tr = mt.parallel.Trainer(
+        symbol, mt.optimizer.create(
+            name, rescale_grad=1.0 / batch["data"].shape[0], **kw),
+        remat=policy, compute_dtype="bfloat16")
+    tr.bind(data_shapes={"data": tuple(batch["data"].shape)},
+            label_shapes={"softmax_label":
+                          tuple(batch["softmax_label"].shape)})
+    tr.init_params(init, arg_params=arg)
+    return tr
+
+
+def _mlp_block_batch():
+    """A batch for GPT-2's MLP block, on the card, from SEED."""
+    rng = np.random.default_rng(SEED)
+    c = GPT2_SMALL["num_hidden"]
+    return {"data": torch.from_numpy(rng.standard_normal(
+                (BATCH * 64, c), dtype=np.float32)).cuda(),
+            "softmax_label": torch.from_numpy(rng.integers(
+                0, c, BATCH * 64).astype(np.float32)).cuda()}
+
+
+def _donated_batch():
+    """``donate_batch=True`` against a trainer that keeps its batches, on
+    GPT-2's MLP block in bfloat16: REMAT_STEPS steps fed the rows of one
+    on-card dataset in turn (views: left as they were), then one whole
+    batch tensor (emptied after its step, its memory freed).  Returns
+    (the dataset untouched and the whole batch given up, the parameters
+    bitwise alike)."""
+    batch = _mlp_block_batch()
+    rows = batch["data"].shape[0] // 2
+    data = {n: torch.cat([v, v.flip(0)]) for n, v in batch.items()}
+    kept = {n: v.clone() for n, v in data.items()}
+    params, given_up = {}, True
+    for donate in (False, True):
+        mt.random.seed(SEED)
+        tr = mt.parallel.Trainer(
+            _mlp_block_symbol(), mt.optimizer.create(
+                "sgd", learning_rate=0.1, momentum=0.9,
+                rescale_grad=1.0 / rows),
+            donate_batch=donate, compute_dtype="bfloat16")
+        tr.bind(data_shapes={"data": (rows,) + tuple(batch["data"].shape[1:])},
+                label_shapes={"softmax_label": (rows,)})
+        tr.init_params()
+        for i in range(REMAT_STEPS):
+            part = slice(rows * (i % 2), rows * (i % 2 + 1))
+            tr.step({n: v[part] for n, v in data.items()})
+        whole = {n: v[rows:].clone() for n, v in data.items()}
+        tr.step(whole)
+        torch.cuda.synchronize()
+        if donate:
+            given_up = all(v.numel() == 0 for v in whole.values())
+        params[donate] = {n: v.clone() for n, v in tr.params.items()}
+        del tr, whole
+    untouched = all(torch.equal(data[n], kept[n]) for n in data)
+    same = all(torch.equal(params[True][n], params[False][n])
+               for n in params[True])
+    return untouched and given_up, same
+
+
+def _remat_dropout():
+    """GPT-2's MLP block with a Dropout, fused in bfloat16: ``nothing``
+    against ``none`` after REMAT_STEPS steps through the capture and
+    replays (the recompute draws the forward's masks from the twin
+    generator inside the one graph)."""
+    symbol = _mlp_block_symbol()
+    batch = _mlp_block_batch()
+    params = {}
+    for policy in ("none", "nothing"):
+        mt.random.seed(SEED)
+        tr = _remat_trainer(symbol, batch, ("sgd", {"learning_rate": 0.1,
+                                                    "momentum": 0.9}),
+                            policy)
+        for _ in range(REMAT_STEPS):
+            tr.step(batch)
+        params[policy] = (dict(tr.params), tr.graph_captures,
+                          tr.graph_replays)
+    (a, ca, ra), (b, cb, rb) = params["none"], params["nothing"]
+    return _rel_all(b, a), (ca, ra, cb, rb)
+
+
+def remat(card):
+    """The fused bfloat16 step of GPT-2 small (batch 4 of 1024 tokens) and
+    of ResNet-50 (batch 256 of 224^2) under each remat policy: the first
+    step's float32 gradients against ``none``'s on the same weights and
+    batch, step ms of the replays, peak memory, and K1/B2 launches a
+    step (the eager first step's count); then the Dropout check."""
+    _phase("remat")
+    record = {"remat": "fused bfloat16 step", "card": card, "cells": {}}
+    reset_launch_counts()
+    total = launch_counts()
+    for name, symbol, batch, opt, init in _remat_cells():
+        mt.random.seed(SEED)
+        first = _remat_trainer(symbol, batch, opt, "none", init=init)
+        arg = {n: v.detach().cpu() for n, v in first.params.items()}
+        del first
+        ref, cells = None, {}
+        for policy in REMAT_POLICIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tr = _remat_trainer(symbol, batch, opt, policy, arg)
+            dev = tr._device_batch(batch)
+            with torch.no_grad():
+                _, _, grads = tr._run_backward(tr.params, tr.aux, dev, None)
+            if ref is None:
+                ref = {n: g.clone() for n, g in grads.items()}
+            err = max(_rel_norms(grads, ref).values())
+            del grads
+            before = launch_counts()
+            times = []
+            for i in range(REMAT_STEPS):
+                if i == 1:
+                    per_step = {k: v - before[k] for k, v in
+                                launch_counts().items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.step(dev)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            cells[policy] = {
+                "grad_rel_err_max": err,
+                "step_ms": statistics.median(times[2:]) * 1e3,
+                "capture_step_ms": times[1] * 1e3,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "k1_b2_per_step": {k: v for k, v in per_step.items()
+                                   if k != "rtc"},
+                "graph_captures": tr.graph_captures}
+            del tr, dev
+        del ref
+        record["cells"][name] = cells
+        for policy, c in cells.items():
+            print("remat %s %s (%s): step %.2f ms, peak %.2f GB, grads %.3g "
+                  "from none's, launches a step %s"
+                  % (name, policy, card, c["step_ms"], c["peak_bytes"] / 1e9,
+                     c["grad_rel_err_max"], c["k1_b2_per_step"]), flush=True)
+    record["dropout_rel_err"], record["dropout_graphs"] = _remat_dropout()
+    record["donated"], record["donated_bitwise"] = _donated_batch()
+    launches = {k: v - total[k] for k, v in launch_counts().items()}
+    record["launches"] = launches
+    _emit(record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = [(name, p) for name, cells in record["cells"].items()
+           for p, c in cells.items()
+           if c["grad_rel_err_max"] > REMAT_GRAD_TOL[name]
+           or c["graph_captures"] != 1]
+    lm = record["cells"]["gpt2-small"]
+    if (bad or record["dropout_rel_err"] > REMAT_DROPOUT_TOL
+            or record["dropout_graphs"] != (1, REMAT_STEPS - 1) * 2
+            or not (record["donated"] and record["donated_bitwise"])
+            or lm["none"]["peak_bytes"] <= lm["nothing"]["peak_bytes"]):
+        raise AssertionError("remat: %s (%s)" % (record, bad))
+    return launches, record
+
+
+def dist_across_cards(card):
+    """NCCL across cards, a rank a card, where the machine has two or
+    more: the ranks bitwise alike, each run within its tolerance of one
+    process over the same global batches (DIST_CLASSIC_TOL, the bfloat16
+    wire 10 WIRE_TOL; the convolution-BatchNorm net normalising by the
+    whole global batch), one capture each, and at two ranks zero=1
+    bitwise zero=0."""
+    _phase("dist_across_cards")
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("dist_across_cards: did not run (%d card on this machine; "
+              "NCCL across cards waits for a machine with two or more)"
+              % n, flush=True)
+        return None
+    ranks, wall = run_workers(n, "ranks_across_cards")
+    runs = ("z0_f32", "z1_f32", "z0_bf16", "conv_bn_z0_f32",
+            "conv_bn_z1_f32")
+    r0 = ranks[0]
+    record = {"dist_across_cards": "%d ranks, a card each, NCCL" % n,
+              "backends": [r["backend"] for r in ranks],
+              "ranks_bitwise": {k: len({r[k]["digest"] for r in ranks}) == 1
+                                for k in runs},
+              "rel_err_vs_one_process": {
+                  k: r0[k]["rel_err_vs_one_process"] for k in runs},
+              "zero1_bitwise_zero0":
+                  r0["z1_f32"]["digest"] == r0["z0_f32"]["digest"],
+              "graphs": {k: (r0[k]["graph_captures"],
+                             r0[k]["graph_replays"]) for k in runs},
+              "wall_s": wall, "card": card}
+    _emit(record)
+    print("dist_across_cards (%s): %s" % (card, record), flush=True)
+    err = record["rel_err_vs_one_process"]
+    if (not all(record["ranks_bitwise"].values())
+            or set(record["backends"]) != {"nccl"}
+            or max(err[k] for k in runs if k != "z0_bf16")
+            > DIST_CLASSIC_TOL
+            or err["z0_bf16"] > 10 * WIRE_TOL
+            or (n == 2 and not record["zero1_bitwise_zero0"])
+            or any(g != (1, DIST_SMALL_STEPS - 1)
+                   for g in record["graphs"].values())):
+        raise AssertionError("dist_across_cards: %s" % record)
+    return record
+
+
 def _kernel_line(name, source, replaces, rec, paths, main_path, err, card,
                  dtype, trains=None):
     """A kernel's record.  ``launches`` is what its wrapper counted on the
@@ -5817,6 +6635,16 @@ def main():
     paths["train_fcn"], _ = train_fcn(card)
     paths["loss_examples"], _ = loss_examples(card)
     paths["op_sweep_card"], _ = op_sweep_card(card)
+    # data-parallel training over worker processes (tools/launch.py), two
+    # contexts in one Module, and the fused step's remat policies
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["dist_one_rank_nccl"], _ = dist_one_rank_nccl(
+        card, trains["train_resnet_bf16"])
+    dist_two_ranks_shared_card(card)
+    dist_across_cards(card)
+    paths["multi_context"], _ = multi_context(card)
+    paths["remat"], _ = remat(card)
     records = times(latencies)
     gelu = rtc_times()
     # the paths that replay a captured graph: what one replay launched (a
@@ -5856,6 +6684,11 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dist_child"]:
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        dist_child(*sys.argv[2:4])
+        sys.exit(0)
     if sys.argv[1:2] == ["resume_child"]:
         if not torch.cuda.is_available():
             sys.exit(1)

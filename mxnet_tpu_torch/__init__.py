@@ -21,7 +21,11 @@ imperative path: ``mx.nd`` NDArrays and the ops they reach, recorded by
 Training reads RecordIO files of JPEGs through ``mx.io.ImageRecordIter``
 (a native loader built from ``csrc/dataloader.cc``), staged onto the card
 and augmented there (``DeviceUploadIter``, ``StreamAugmentIter``,
-``DeviceCacheIter``), with ``mx.kvstore`` stores on one device.
+``DeviceCacheIter``), with ``mx.kvstore`` stores.  Under
+``tools/launch.py`` (``MXTPU_COORDINATOR``, ``MXTPU_NUM_PROCESSES``,
+``MXTPU_PROCESS_ID``) the import joins a ``torch.distributed`` group and
+``fit`` with a ``dist_sync`` store trains data-parallel over the worker
+processes.
 """
 from . import base
 from .base import Context, MXNetError, cpu, gpu, current_context
@@ -63,6 +67,15 @@ from . import models
 from . import convert
 from . import rtc
 from . import envknobs
+from . import health
+from . import executor_manager
+from .executor_manager import DataParallelExecutorGroup  # noqa: F401
+
+import os as _os  # noqa: E402
+if _os.environ.get("MXTPU_COORDINATOR"):
+    # join the launcher's process group (tools/launch.py) before any
+    # training code asks for its rank or its card
+    parallel.collectives.join_from_env()
 
 # one scan of the MXTPU_* env surface per process: a typo'd knob warns
 # with a did-you-mean instead of silently configuring nothing;

@@ -181,12 +181,25 @@ def gpu(device_id=0):
     return Context("gpu", device_id)
 
 
+# the card of this process: 0, or a worker's ``rank % device_count``
+# (``parallel.collectives.join_from_env``)
+_DEFAULT_GPU = 0
+
+
+def set_default_gpu(device_id: int):
+    """Make ``gpu(device_id)`` the default context of every thread."""
+    global _DEFAULT_GPU
+    _DEFAULT_GPU = int(device_id)
+
+
 def default_context() -> Context:
-    """The framework default, ``gpu(0)``, unless a ``with`` scope or
-    :func:`set_default_context` chose another.  There is no fallback to
-    the CPU: on a machine without CUDA, using it raises."""
+    """The framework default, ``gpu(0)`` (a worker's own card, under the
+    launcher), unless a ``with`` scope or :func:`set_default_context`
+    chose another.  There is no fallback to the CPU: on a machine without
+    CUDA, using it raises."""
     override = getattr(Context._default_ctx, "value", None)
-    return override if override is not None else Context("gpu", 0)
+    return override if override is not None else Context("gpu",
+                                                         _DEFAULT_GPU)
 
 
 def set_default_context(ctx: Context):

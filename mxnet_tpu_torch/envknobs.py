@@ -71,6 +71,10 @@ KNOBS: Dict[str, _Knob] = dict((
        "optimizer-state sharding stage (0|1)"),
     _k("MXTPU_GRAD_ACCUM", "int", 1, "trainer",
        "microbatch accumulation count"),
+    _k("MXTPU_GRAD_DTYPE", "str", "f32", "trainer",
+       "cross-chip gradient wire dtype: f32|bf16"),
+    _k("MXTPU_DONATE_BATCH", "bool", False, "trainer",
+       "donate the batch argument (frees staging buffers)"),
     _k("MXTPU_SENTINEL", "str", "off", "trainer",
        "step sentinel: off|skip|abort"),
     _k("MXTPU_SENTINEL_MAX_SKIPS", "int", 3, "trainer",
@@ -129,6 +133,18 @@ KNOBS: Dict[str, _Knob] = dict((
        "fixed per-chip capacity for fleet drills on the CPU tier"),
     _k("MXTPU_FAULTS", "str", None, "faults", "fault-injection spec"),
     # --- faults / launch ---------------------------------------------------
+    _k("MXTPU_HEARTBEAT_DIR", "str", None, "health",
+       "shared heartbeat dir"),
+    _k("MXTPU_HEARTBEAT_TRANSPORT", "str", "dir", "health",
+       "dir|kv heartbeat transport"),
+    _k("MXTPU_INIT_ATTEMPTS", "int", None, "distributed",
+       "jax.distributed.initialize retries"),
+    _k("MXTPU_INIT_TIMEOUT_S", "float", None, "distributed",
+       "jax.distributed.initialize hard timeout"),
+    _k("MXTPU_COORDINATOR", "str", None, "distributed",
+       "coordinator address (set by tools/launch.py)"),
+    _k("MXTPU_NUM_PROCESSES", "int", None, "distributed",
+       "world size (set by tools/launch.py)"),
     _k("MXTPU_PROCESS_ID", "int", None, "distributed",
        "rank (set by tools/launch.py)"),
     _k("MXTPU_OBS", "bool", False, "obs", "arm the span recorder"),

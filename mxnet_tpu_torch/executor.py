@@ -54,11 +54,13 @@ class _GraphProgram:
         # takes the process default
         self.dtype_policy = None
 
-    def _context(self, device, is_train, rng, record=None):
+    def _context(self, device, is_train, rng, record=None, batch_sum=None,
+                 batch_ranks=1):
         return OpContext(is_train=is_train, device=device,
                          rng=_random.generator(device) if rng is None
                          else rng, record=record,
-                         dtype_policy=self.dtype_policy)
+                         dtype_policy=self.dtype_policy,
+                         batch_sum=batch_sum, batch_ranks=batch_ranks)
 
     def _eval_node(self, n, ctx, env, aux_vals, aux_out, monitor=None):
         """Run the op node ``n`` on its inputs in ``env``: its outputs go
@@ -82,7 +84,7 @@ class _GraphProgram:
     def _eval(self, arg_vals: Sequence[torch.Tensor],
               aux_vals: Sequence[torch.Tensor], device: torch.device,
               is_train=False, rng: Optional[torch.Generator] = None,
-              monitor=None):
+              monitor=None, batch_sum=None, batch_ranks=1):
         """Evaluate the graph; returns ``(outputs, aux_states)``, the aux
         states as the ops updated them.  ``device`` is where ops without
         tensor inputs create theirs; samplers draw from ``rng``, by
@@ -91,8 +93,10 @@ class _GraphProgram:
         requires a gradient.  ``monitor(name, NDArray)`` sees every
         output of every op node, named ``"<node>_<output>"`` as in the
         JAX package, before the walk releases it; it gets the value off
-        the autograd graph."""
-        ctx = self._context(device, is_train, rng)
+        the autograd graph.  ``batch_sum``/``batch_ranks``: the batch's
+        rows lie on that many ranks (``OpContext``)."""
+        ctx = self._context(device, is_train, rng, batch_sum=batch_sum,
+                            batch_ranks=batch_ranks)
         env = {}
         aux_out = list(aux_vals)
         for pos, n in enumerate(self.nodes):

@@ -1,34 +1,32 @@
 """KVStore (``mxnet_tpu/kvstore.py``): the parameter-synchronisation
-facade, in one process.
+facade.
 
 Reference: ``include/mxnet/kvstore.h:26-303`` + ``src/kvstore/``.  The
 ``local``/``device`` stores merge the values pushed for a key (one sum on
 the first value's device, the counterpart of ``CommDevice::Reduce``) and
 either keep the sum or hand it to the updater.  The ``dist_sync`` stores
 (``dist_sync``, ``dist_sync_tpu``, ``dist_sync_device``,
-``dist_device_sync``, ``dist``) run as the JAX package's ``KVStoreTPU``
-runs alone: rank 0 of one worker, with local semantics.  Several
-processes (``torch.distributed`` initialised with more than one) wait for
-the port's multi-process KVStore and raise.  ``dist_async`` raises, as in
-the JAX package.
+``dist_device_sync``, ``dist``) are :class:`KVStoreTPU`: every worker
+process of the ``torch.distributed`` group (joined at import from the
+launcher's ``MXTPU_*`` variables) is a rank; ``init`` takes rank 0's
+value, and a push sums the local values and then all-reduces the sum
+over the ranks, so every rank applies the same update (the sync-mode
+contract of ``kvstore_dist_server.h:164-210``, with no server role).
+Alone it is rank 0 of one worker.  ``dist_async`` raises, as in the JAX
+package.
 
 The Python surface (init/push/pull/set_optimizer/_set_updater/_barrier,
 ``save_optimizer_states``) mirrors ``python/mxnet/kvstore.py``.
 """
 from __future__ import annotations
 
-import torch
-
+from . import health as _health
 from . import optimizer as opt
 from .base import MXNetError
 from .ndarray import NDArray
+from .parallel import collectives as _coll
 
 __all__ = ["KVStore", "KVStoreTPU", "create"]
-
-# what a multi-process store names
-MULTI_PROCESS = ("a dist KVStore over several processes waits for the "
-                 "port's multi-process KVStore (ROADMAP item 5)")
-
 
 def _key_list(key):
     if isinstance(key, (str, int)):
@@ -79,6 +77,11 @@ class KVStore(object):
                 raise MXNetError("key %s not initialized" % str(k))
             merged = self._merge(vlist)
             if self._updater is not None:
+                if self._stored[k].data.device != merged.data.device:
+                    # the value moves, once, to where the gradients are
+                    # summed, and the updater runs there
+                    self._stored[k] = NDArray(
+                        self._stored[k].data.to(merged.data.device))
                 self._updater(_updater_key(k), merged, self._stored[k])
             else:
                 self._stored[k] = merged
@@ -148,17 +151,96 @@ class KVStore(object):
 
 
 class KVStoreTPU(KVStore):
-    """The ``dist_sync`` stores, one process: rank 0 of one worker, local
-    semantics (the JAX package's ``KVStoreTPU`` alone).  Made while
-    ``torch.distributed`` runs several processes, it raises."""
+    """The ``dist_sync`` stores over the worker processes of the
+    ``torch.distributed`` group (``rank``/``num_workers`` from it; rank 0
+    of one worker without it).  Made with a heartbeat directory
+    (``MXTPU_HEARTBEAT_DIR``) or a process group, it stamps this rank's
+    liveness (``health.Heartbeat``)."""
 
     def __init__(self, kind):
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise MXNetError("kvstore %r over %d processes: %s"
-                             % (kind, dist.get_world_size(), MULTI_PROCESS))
         super().__init__(kind)
+        self._heartbeat = _health.Heartbeat(self.rank)
+
+    @property
+    def rank(self):
+        return _coll._process_index()
+
+    @property
+    def num_workers(self):
+        return _coll._process_count()
+
+    def init(self, key, value):
+        """Rank 0's value wins (reference ``kvstore_dist.h:63-80``: only
+        rank 0 pushes the init; every rank pulls it back), so ranks whose
+        initialisers drew different numbers start alike."""
+        keys, single = _key_list(key)
+        for k, vlist in zip(keys, _val_list_list(value, single)):
+            if k in self._stored:
+                continue
+            v = vlist[0]
+            if self.num_workers > 1:
+                v = NDArray(_coll.broadcast_from_rank0(v.data))
+            self._stored[k] = v.copy()
+
+    def _merge(self, vlist):
+        """The local add-n, then its sum over every rank (one all-reduce
+        a key, outside any step; Module's fused path sums inside its
+        step instead)."""
+        merged = super()._merge(vlist)
+        if self.num_workers > 1:
+            merged = NDArray(_coll.global_allreduce(merged.data))
+        return merged
+
+    def num_dead_node(self, node_id=0, timeout=60):
+        """Ranks whose liveness stamps lapsed (reference
+        ``get_num_dead_node``; ``health.dead_nodes``)."""
+        return len(_health.dead_nodes(self.num_workers, timeout=timeout))
+
+    def save_optimizer_states(self, fname):
+        """The updater's state, identical on every rank, committed by rank
+        0 through ``model._commit_file`` (tmp, fsync, rename) with
+        ``resilience.retry_io``; another rank raises (the reference
+        refuses a dist save: its state lived on the servers).  No
+        implicit barrier: a job whose other ranks load right after orders
+        the two with ``kv._barrier()``."""
+        if self._updater is None:
+            raise MXNetError("no optimizer state to save: call "
+                             "set_optimizer first")
+        if self.rank != 0:
+            raise MXNetError(
+                "dist optimizer-state saves are rank-0-only (one copy "
+                "of truth, identical on every rank); guard the "
+                "checkpoint call with kv.rank == 0")
+        from .model import _commit_file
+        from .resilience import retry_io
+        blob = self._updater.get_states()
+
+        def write(tmp):
+            with open(tmp, "wb") as f:
+                f.write(blob)
+
+        retry_io(lambda: _commit_file(fname, write,
+                                      crash_site="ckpt_write"),
+                 what="dist optimizer state write")
+
+    def load_optimizer_states(self, fname):
+        """Restore the rank-0-written state on this rank (reads retried;
+        no implicit barrier)."""
+        if self._updater is None:
+            raise MXNetError("no optimizer state to load: call "
+                             "set_optimizer first")
+        from .resilience import retry_io
+
+        def read():
+            with open(fname, "rb") as f:
+                return f.read()
+
+        self._updater.set_states(retry_io(read,
+                                          what="dist optimizer state read"))
+
+    def _barrier(self):
+        if self.num_workers > 1:
+            _coll.barrier()
 
 
 def create(name="local"):

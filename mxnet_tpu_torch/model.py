@@ -30,15 +30,12 @@ from .initializer import Uniform
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint",
            "FeedForward"]
 
-# what a request for several devices names
-KVSTORE_SLICE = ("training on several contexts is not ported yet: it comes "
-                 "with the port's multi-device KVStore slice")
-
-
 def _create_kvstore(kvstore, num_device, arg_params):
     """``(store, update_on_kvstore)`` (reference ``model.py:40-68``).  One
-    device with a local store needs none; a ``dist`` string or a store
-    object gives a store that owns the update."""
+    device with a local store needs none; several devices, a ``dist``
+    string or a store object give a store, which owns the update except
+    for a ``local`` store over small parameters (a local updater then
+    runs on each device's copy of the merged gradients)."""
     from . import kvstore as kvs
     update_on_kvstore = True
     if kvstore is None:

@@ -8,21 +8,25 @@ paths, as in the JAX package:
   :class:`mxnet_tpu_torch.parallel.Trainer`, captured in one CUDA graph
   on the card.  ``MXTPU_MODULE_FUSED=auto`` (the default) fuses a single
   ``gpu`` context, the counterpart of the JAX package's single ``tpu``
+  context, and a :class:`~mxnet_tpu_torch.parallel.Mesh` given as the
   context; ``always`` fuses any single context (the CPU tests use it);
-  ``never`` keeps the classic path.  ``forward(is_train=True)`` stages
-  the batch, ``update()`` runs the step, and the outputs metrics see are
-  the step's forward outputs.
-* **classic**: one executor on one context
-  (:class:`DataParallelExecutorGroup`), gradients from its backward, and
-  the optimizer applied per parameter by a local updater (one device
-  needs no KVStore, as in the reference).  It also takes an optimizer
-  without a pure rule, with a logged warning, as the JAX package does.
+  ``never`` keeps the classic path.  With a ``dist`` store the step
+  spans every rank of the process group (the gradient sum inside it),
+  and every rank starts from rank 0's parameters.
+  ``forward(is_train=True)`` stages the batch, ``update()`` runs the
+  step, and the outputs metrics see are the step's forward outputs.
+* **classic**: one executor per context, each on its slice of the
+  batch (:class:`DataParallelExecutorGroup`), gradients from their
+  backward, merged through a KVStore (several contexts or a ``dist``
+  store, which sums over the ranks too) and the optimizer applied per
+  parameter by the store or a local updater (one device needs no
+  KVStore, as in the reference).  It also takes an optimizer without a
+  pure rule, with a logged warning, as the JAX package does.  Several
+  contexts always take it: one process drives one device of a mesh.
 
-A KVStore on one device (a store object, or a ``dist_sync`` string run
-in one process) keeps the fused path, as the JAX package's single-host
-fused path does; on the classic path a store owns the update, as in the
-reference.  A mesh context and several contexts raise, naming the port's
-mesh and KVStore slice.
+A store on one device (a store object, or a ``dist_sync`` string run in
+one process) keeps the fused path, as the JAX package's single-host fused
+path does.
 """
 from __future__ import annotations
 
@@ -47,10 +51,6 @@ from .executor_group import DataParallelExecutorGroup
 # generator's state and the optimizer's update counts)
 _CLASSIC_STATES = "mxnet_tpu_torch classic states"
 
-MESH_SLICE = ("a mesh context (several devices in one fused step) waits for "
-              "the port's mesh and KVStore slice")
-
-
 class Module(BaseModule):
     """Module over a Symbol (reference ``module.py:31-90``)."""
 
@@ -63,13 +63,19 @@ class Module(BaseModule):
         # float32 master weights); default from MXTPU_COMPUTE_DTYPE
         self._compute_dtype = compute_dtype or \
             os.environ.get("MXTPU_COMPUTE_DTYPE") or None
+        from ..parallel.mesh import Mesh
         if context is None:
             context = current_context()
-        if isinstance(context, Context):
+        # a mesh: the fused step over its ranks, each on its own device
+        self._mesh = context if isinstance(context, Mesh) else None
+        if self._mesh is not None:
+            context = [current_context()]
+        elif isinstance(context, Context):
             context = [context]
         elif not (isinstance(context, (list, tuple))
                   and all(isinstance(c, Context) for c in context)):
-            raise MXNetError("context %r: %s" % (context, MESH_SLICE))
+            raise MXNetError("context %r is neither a Context, a list of "
+                             "them nor a mesh (parallel.Mesh)" % (context,))
         self._context = list(context)
         # fused-path policy: "auto" fuses a single gpu context, "always"
         # any single context, "never" keeps the classic executor path
@@ -107,6 +113,7 @@ class Module(BaseModule):
         self._label_shapes = None
         # fused path state: bind chose it, init_optimizer makes the trainer
         self._fused = False
+        self._auto_fused = False
         self._trainer = None
         self._staged_batch = None
         self._fused_outputs = None
@@ -252,6 +259,9 @@ class Module(BaseModule):
         self._label_shapes = None
         self._fused = False
         self._trainer = None
+        if self._auto_fused:
+            self._mesh = None
+            self._auto_fused = False
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
@@ -290,15 +300,13 @@ class Module(BaseModule):
                     shared_module is None and grad_req == "write" and
                     not self._fixed_param_names and
                     self._fused_mode != "never")
-        if fused_ok and (self._fused_mode == "always" or (
-                len(self._context) == 1 and
-                self._context[0].device_type == "gpu")):
-            if len(self._context) != 1:
-                raise MXNetError("MXTPU_MODULE_FUSED=always over %d "
-                                 "contexts: %s" % (len(self._context),
-                                                   MESH_SLICE))
+        auto = self._mesh is None and len(self._context) == 1 and (
+            self._fused_mode == "always" or
+            self._context[0].device_type == "gpu")
+        if fused_ok and (auto or self._mesh is not None):
             self._context[0].torch_device()     # raises without the device
             self._fused = True
+            self._auto_fused = auto
             self._build_param_mirrors()
             return
         self._bind_exec_group(grad_req, shared_module)
@@ -328,7 +336,19 @@ class Module(BaseModule):
             self.inputs_need_grad,
             shared_group=shared_module._exec_group if shared_module else None,
             logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req)
+            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
+            workload=self._work_load_list)
+
+    def _auto_global_mesh(self):
+        """The fused step's mesh under a ``dist`` store: the ``data`` axis
+        over every rank of the process group, rank-major (one rank too:
+        the step then issues its sum as an identity); None without a
+        process group, where nothing is synchronised."""
+        from ..parallel.collectives import backend
+        from ..parallel.mesh import data_parallel_mesh
+        if backend() is None:
+            return None
+        return data_parallel_mesh()
 
     def _build_param_mirrors(self):
         """Host (CPU) copies of the parameters at their inferred shapes,
@@ -412,7 +432,7 @@ class Module(BaseModule):
         with Context(self._context[0]):
             trainer = Trainer(
                 self._symbol, optimizer, data_names=self._data_names,
-                label_names=self._label_names,
+                label_names=self._label_names, mesh=self._mesh,
                 compute_dtype=self._compute_dtype)
         trainer.bind(
             data_shapes={d.name: d.shape for d in self._data_shapes},
@@ -427,12 +447,14 @@ class Module(BaseModule):
                        force_init=False):
         """Install the optimizer and the KVStore (reference
         ``module.py:432-530``).  A ``dist`` string becomes its store first,
-        so the default ``rescale_grad`` covers the global batch (one
-        worker here).  The fused path makes its Trainer here and keeps it
-        with a store on one device, which has nothing to synchronise; an
-        optimizer without a pure rule falls back, with a warning, to the
-        classic path.  There a store owns the update when
-        ``_create_kvstore`` says so, else a local updater runs."""
+        so the default ``rescale_grad`` covers the global batch (the local
+        batch times ``num_workers``).  The fused path makes its Trainer
+        here: under a ``dist`` store over a process group its mesh spans
+        every rank (``_auto_global_mesh``), and every rank starts from
+        rank 0's parameters; an optimizer without a pure rule falls back,
+        with a warning, to the classic path.  There a store owns the
+        update when ``_create_kvstore`` says so, else a local updater
+        runs."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
@@ -444,6 +466,7 @@ class Module(BaseModule):
         batch_size = self._data_shapes[0].shape[0]
         if kv is not None and "dist" in kv.type and "_async" not in kv.type:
             batch_size *= kv.num_workers
+        named_here = isinstance(optimizer, str) or not optimizer.idx2name
         if isinstance(optimizer, str):
             idx2name = {i: n for i, n in enumerate(self._param_names)}
             optimizer_params = dict(optimizer_params)
@@ -463,7 +486,16 @@ class Module(BaseModule):
         self._optimizer = optimizer
         if self._fused:
             from ..parallel.optim import _supports_fusion
+            if kv is not None and "dist" in kv.type and self._auto_fused:
+                self._mesh = self._auto_global_mesh()
             if _supports_fusion(optimizer):
+                if self._mesh is not None and self._mesh.size > 1:
+                    # replicated parameters start alike: rank 0's win
+                    # (kvstore_dist.h:63-80)
+                    from ..parallel.collectives import broadcast_from_rank0
+                    for params in (self._arg_params, self._aux_params):
+                        for arr in params.values():
+                            arr._set_data(broadcast_from_rank0(arr.data))
                 self._trainer = self._new_trainer(optimizer)
                 self._kvstore, self._update_on_kvstore = None, False
                 self._finish_optimizer_init()
@@ -479,6 +511,15 @@ class Module(BaseModule):
             self._exec_group.set_params(self._arg_params, self._aux_params)
         self._kvstore, self._update_on_kvstore = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
+        n_dev = len(self._context)
+        if named_here and not self._update_on_kvstore and n_dev > 1:
+            # a local updater keys device k's copy of parameter i as
+            # i * n_dev + k (model._update_params): name those keys, so
+            # lr_mult, wd_mult and the bias/gamma wd default find them
+            # (reference module.py:484-490)
+            optimizer.idx2name = {i * n_dev + k: n for i, n in
+                                  enumerate(self._param_names)
+                                  for k in range(n_dev)}
         if self._kvstore:
             _initialize_kvstore(self._kvstore, self._exec_group.param_arrays,
                                 self._arg_params, self._param_names,

@@ -73,24 +73,33 @@ def _bshape(data, ax):
 _CANCEL_FRAC = 63.0 / 64.0
 
 
-def bn_batch_stats(data, center32, reduce_axes):
+def bn_batch_stats(data, center32, reduce_axes, batch_sum=None, ranks=1):
     """Float32 batch statistics of ``data`` over ``reduce_axes``, centred
     on the per-channel float32 ``center32``, with the cancellation
-    fallback.  Returns ``(mean32, var32)`` per channel."""
+    fallback.  Returns ``(mean32, var32)`` per channel.  With
+    ``batch_sum`` (the batch's rows on ``ranks`` ranks of a data mesh)
+    each sum is summed over the ranks, so the statistics are the whole
+    batch's on every rank."""
     dims = tuple(reduce_axes)
     ax = [i for i in range(data.ndim) if i not in dims]
     assert len(ax) == 1
     bshape = _bshape(data, ax[0])
-    n_red = float(math.prod(data.shape[i] for i in dims))
+    n_red = float(math.prod(data.shape[i] for i in dims)) * ranks
     # data - center32 widens a bfloat16 or float16 input to float32
     # exactly, in the same pass as the subtraction
     xc = data - center32.reshape(bshape)
-    d1 = xc.sum(dims) / n_red
-    d2 = (xc * xc).sum(dims) / n_red
+    s1, s2 = xc.sum(dims), (xc * xc).sum(dims)
+    if batch_sum is not None:
+        s1, s2 = batch_sum(torch.stack([s1, s2]))
+    d1 = s1 / n_red
+    d2 = s2 / n_red
     mean32 = d1 + center32
     fast = torch.clamp_min(d2 - d1 * d1, 0.0)
     xm = data - mean32.reshape(bshape)
-    two_pass = (xm * xm).sum(dims) / n_red
+    sm = (xm * xm).sum(dims)
+    if batch_sum is not None:
+        sm = batch_sum(sm)
+    two_pass = sm / n_red
     cancels = (d1 * d1 > _CANCEL_FRAC * d2).any()
     return mean32, torch.where(cancels, two_pass, fast)
 
@@ -103,7 +112,8 @@ class _BNTrainNormalize(torch.autograd.Function):
     form accounts for them."""
 
     @staticmethod
-    def forward(ctx, data, gamma, beta, mean32, var32, ax, eps):
+    def forward(ctx, data, gamma, beta, mean32, var32, ax, eps, batch_sum,
+                ranks):
         bshape = _bshape(data, ax)
         inv32 = torch.rsqrt(var32 + eps)
         scale32 = gamma.float() * inv32
@@ -115,6 +125,7 @@ class _BNTrainNormalize(torch.autograd.Function):
         ctx.save_for_backward(data, mean32, inv32, scale32)
         ctx.ax = ax
         ctx.dtypes = (gamma.dtype, beta.dtype)
+        ctx.batch = (batch_sum, ranks)
         return out
 
     @staticmethod
@@ -123,7 +134,8 @@ class _BNTrainNormalize(torch.autograd.Function):
         ax = ctx.ax
         bshape = _bshape(data, ax)
         dims = tuple(i for i in range(data.ndim) if i != ax)
-        n_red = float(math.prod(data.shape[i] for i in dims))
+        batch_sum, ranks = ctx.batch
+        n_red = float(math.prod(data.shape[i] for i in dims)) * ranks
         dt = data.dtype
         # per-channel sums accumulate in float32 over products in the
         # cotangent's dtype
@@ -131,22 +143,30 @@ class _BNTrainNormalize(torch.autograd.Function):
         xhat = (data - mean32.reshape(bshape).to(dt)) \
             * inv32.reshape(bshape).to(dt)
         dgamma32 = (dy * xhat).sum(dims, dtype=torch.float32)
+        # over a data mesh dx reads the whole batch's sums; dgamma and
+        # dbeta stay this rank's (the step sums the gradients)
+        gbeta32, ggamma32 = (dbeta32, dgamma32) if batch_sum is None \
+            else batch_sum(torch.stack([dbeta32, dgamma32]))
         # dx = (gamma*inv)(dy - sum(dy)/n - xhat*sum(dy*xhat)/n), as
         # dx = x*A + dy*S + B with per-channel float32 A, S, B
-        c2 = dgamma32 / n_red * inv32
+        c2 = ggamma32 / n_red * inv32
         a = -scale32 * c2
-        b = scale32 * (mean32 * c2 - dbeta32 / n_red)
+        b = scale32 * (mean32 * c2 - gbeta32 / n_red)
         dx = data * a.reshape(bshape).to(dt) \
             + dy * scale32.reshape(bshape).to(dy.dtype) \
             + b.reshape(bshape).to(dt)
         gdt, bdt = ctx.dtypes
         return (dx.to(dt), dgamma32.to(gdt), dbeta32.to(bdt),
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
-def bn_train_normalize(data, gamma, beta, mean32, var32, ax, eps):
+def bn_train_normalize(data, gamma, beta, mean32, var32, ax, eps,
+                       batch_sum=None, ranks=1):
     """``data * scale + shift`` with per-channel float32 ``scale =
     gamma * rsqrt(var32 + eps)`` and ``shift = beta - mean32 * scale``
-    rounded to the data's dtype, differentiated in closed form."""
+    rounded to the data's dtype, differentiated in closed form (over
+    the whole batch of a data mesh with ``batch_sum``, as
+    :func:`bn_batch_stats`)."""
     return _BNTrainNormalize.apply(data, gamma, beta, mean32.detach(),
-                                   var32.detach(), ax, eps)
+                                   var32.detach(), ax, eps, batch_sum,
+                                   ranks)

@@ -503,7 +503,8 @@ def _batch_norm(p, c, data, gamma, beta, moving_mean, moving_var):
     (unless ``use_global_stats``) the statistics are the batch's, float32
     and single-pass (``op/bytediet.py``), cast to the data's dtype, and
     the moving averages become ``m * old + (1 - m) * batch`` in the aux
-    states' dtype; the normalize's backward is the closed form, or under
+    states' dtype (over a data mesh, the whole batch's: ``OpContext``
+    ``batch_sum``); the normalize's backward is the closed form, or under
     the ``legacy`` policy or with ``output_mean_var`` autograd through
     ``(x - mean) * rsqrt(var + eps) * gamma + beta``, which is also the
     inference path, on the moving statistics.  ``fix_gamma`` holds gamma
@@ -518,7 +519,8 @@ def _batch_norm(p, c, data, gamma, beta, moving_mean, moving_var):
         # the closed form differentiates the statistics itself
         with torch.set_grad_enabled(torch.is_grad_enabled() and not closed):
             mean32, var32 = _bd.bn_batch_stats(data, moving_mean.float(),
-                                               reduce_axes)
+                                               reduce_axes, c.batch_sum,
+                                               c.batch_ranks)
         mean, var = mean32.to(data.dtype), var32.to(data.dtype)
         m = p["momentum"]
         new_mean = moving_mean * _scalar(m, moving_mean) \
@@ -527,7 +529,8 @@ def _batch_norm(p, c, data, gamma, beta, moving_mean, moving_var):
             + var.detach() * _scalar(1 - m, var)
         if closed:
             out = _bd.bn_train_normalize(data, gamma, beta, mean32, var32,
-                                         ax, p["eps"])
+                                         ax, p["eps"], c.batch_sum,
+                                         c.batch_ranks)
             return out, new_mean, new_var
     else:
         mean, var = moving_mean, moving_var

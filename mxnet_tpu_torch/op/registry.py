@@ -41,18 +41,23 @@ class OpContext:
     ``ResourceRequest::kRandom``); None where nothing draws.
     ``dtype_policy`` selects the backward formulations
     (``op/bytediet.py``): ``"bytediet"``, ``"legacy"``, or None for the
-    process default.
+    process default.  ``batch_sum``, where the rows of one batch lie on
+    ``batch_ranks`` ranks of a data mesh, sums a tensor over those ranks
+    (differentiably): BatchNorm's statistics then cover the whole batch.
     """
 
-    __slots__ = ("is_train", "record", "device", "rng", "dtype_policy")
+    __slots__ = ("is_train", "record", "device", "rng", "dtype_policy",
+                 "batch_sum", "batch_ranks")
 
     def __init__(self, is_train=False, device=None, rng=None, record=None,
-                 dtype_policy=None):
+                 dtype_policy=None, batch_sum=None, batch_ranks=1):
         self.is_train = is_train
         self.record = is_train if record is None else record
         self.device = torch.device("cpu") if device is None else device
         self.rng = rng
         self.dtype_policy = dtype_policy
+        self.batch_sum = batch_sum
+        self.batch_ranks = batch_ranks
 
 
 def _parse_bool(v):

@@ -1,39 +1,73 @@
 """The fused train step (``mxnet_tpu/parallel/trainer.py``): forward,
-backward and optimizer update as one step, on one device.
+backward, the gradient sum over the worker processes and the optimizer
+update as one step.
 
 The JAX package jits the whole step into one XLA program.  Here the
 step is one Python function over torch tensors: the graph walk recorded
 on torch autograd, ``torch.autograd.grad`` for the float32 gradients,
-the optional finiteness sentinel, and the optimizer's pure rule over
-every parameter, whose results are written into the trainer's state
-tensors in place.  On a CUDA device the first step with a given set of
-batch shapes runs eagerly on a side stream (it builds the kernels and
-warms cuBLAS and the allocator); the next one captures the step in one
+their sum over the ranks of a ``data`` mesh, the optional finiteness
+sentinel, and the optimizer's pure rule over every parameter, whose
+results are written into the trainer's state tensors in place.  On a
+CUDA device the first step with a given set of batch shapes runs eagerly
+on a side stream (it builds the kernels and warms cuBLAS, the allocator
+and the communicator); the next one captures the step in one
 ``torch.cuda.CUDAGraph`` and every later step copies its batch into the
 graph's input buffers and replays it.  A failed capture raises: nothing
 carries on eagerly.  On the CPU the same step function runs eagerly every
 time, which is how the tests run it.
 
-Ported here: one device, ``compute_dtype`` (float32 master weights,
-gradients and aux states; narrow products summed in float32), the
-``dtype_policy`` of the backward formulations, the sentinel
-(off/skip/abort) with loss scaling (none, fixed or dynamic),
-``grad_accum``, the optimizer-state round trip (with the device
-generator's state, for a resume that draws the same masks) and
-``reshape`` to new batch shapes (a graph per shape, one state).  Aux
-states (BatchNorm's moving statistics) are float32 masters, cast to the
-compute dtype for the forward like the params, and the step writes their
-new values into them in place.  A mesh, tensor-parallel
-``param_specs``, ``zero=1``, ``remat``, ``integrity``, tune plans
-(``plan=``), the persisted program cache and the static analyses wait
-for later slices of the port, and each raises :class:`MXNetError` naming
-its slice.
+Data parallelism (``mesh=``, a :class:`~.mesh.Mesh` over every rank of
+the ``torch.distributed`` group): each rank binds and feeds its own rows
+of the global batch; the float32 gradients are summed over the ranks
+inside the step (one all-reduce of every gradient packed into one
+buffer).  BatchNorm normalises by the whole global batch, its
+per-channel sums summed over the ranks inside the forward and the
+backward, as the JAX package's step, one program over the mesh, does;
+under the bfloat16 wire each rank normalises by its own rows and the
+moving statistics are averaged, as the JAX package's shard_map'd
+backward does.  Either way the ranks' state stays bitwise alike.  Over
+NCCL the collectives are captured in the step's CUDA graph; with a
+process group and a mesh the gradient sum is issued even at one rank
+(an identity), so a one-card run captures a real NCCL launch.  Over gloo
+a CUDA graph cannot hold the host-side collective, so the step runs
+uncaptured every time (``graph_captures`` stays 0).
+``zero=1`` reduce-scatters the gradients, updates each rank's rows of
+every leaf (``mesh.zero_spec``: its optimizer state is 1/n of the leaf)
+and all-gathers the parameters; ``grad_dtype="bf16"`` sends the
+gradients as bfloat16 and sums them in float32
+(``collectives.lowp_allreduce``, keeping the float32 shard under
+``zero=1``).  Both, and the whole-batch BatchNorm, are inert at one
+rank, as in the JAX package.  ``donate_batch=True`` gives each batch
+tensor up to the step, as the JAX package donates its batch argument:
+a tensor that is the whole of its storage (a staging buffer) is
+emptied once the step has read it, and its memory freed; a view of a
+larger storage (an on-card dataset's rows) is left as it is.  A caller
+that feeds the same tensors again, or reads a batch member after the
+step, keeps it off.  ``remat`` recomputes activations in the backward
+(:func:`remat_policy`).
+
+Also ported: ``compute_dtype`` (float32 master weights, gradients and
+aux states; narrow products summed in float32), the ``dtype_policy`` of
+the backward formulations, the sentinel (off/skip/abort) with loss
+scaling (none, fixed or dynamic), ``grad_accum``, the optimizer-state
+round trip (with the generator's state, for a resume that draws the
+same masks; a ``zero=1`` blob holds whole leaves, so it restores across
+``zero`` settings) and ``reshape`` to new batch shapes (a graph per
+shape, one state).  Aux states (BatchNorm's moving statistics) are
+float32 masters, cast to the compute dtype for the forward like the
+params, and the step writes their new values into them in place.
+Tensor-parallel ``param_specs``, ``integrity``, tune
+plans (``plan=``), the persisted program cache and the static analyses
+wait for later slices of the port, and each raises :class:`MXNetError`
+naming its slice.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
+import math
 import os
 import pickle
 from typing import Dict, List, Optional, Sequence
@@ -46,9 +80,11 @@ from ..base import MXNetError, _dtype, current_context
 from ..executor import _GraphProgram
 from ..initializer import InitDesc, Uniform
 from ..ndarray import NDArray
+from . import collectives as _coll
+from .mesh import AXIS_SLICE, Mesh, PartitionSpec, zero_spec
 from .optim import make_update_fn
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "remat_policy"]
 
 # dynamic loss-scale schedule (the standard GradScaler constants): halve
 # on a non-finite step, double after GROWTH_INTERVAL consecutive clean
@@ -66,7 +102,6 @@ _FIXED_LOSS_OPS = frozenset((
     "MAERegressionOutput",
 ))
 
-MESH_SLICE = "waits for the port's mesh and KVStore slice"
 # batch dtypes narrowed on the way in, as the JAX package's arrays are
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
@@ -89,6 +124,50 @@ def _seeds_reach_grads(symbol) -> bool:
                                                            "1"):
                 return False
     return True
+
+
+def _saved_ops(name):
+    """The aten ops whose outputs a remat policy keeps."""
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.addmm.default, aten.bmm.default,
+            aten.baddbmm.default}
+    if name == "dots":
+        return dots
+    return dots | {aten.convolution.default, aten._convolution.default}
+
+
+def remat_policy(name):
+    """The rematerialisation policy of the fused step: None (keep every
+    residual), or the ``context_fn`` of a non-reentrant
+    ``torch.utils.checkpoint`` over the whole forward.
+
+    - ``"none"``: keep every residual (the most memory).
+    - ``"convs_dots"``: keep only convolution and matmul outputs; the
+      cheap epilogues (BatchNorm, ReLU, adds) are recomputed.
+    - ``"dots"``: keep only matmul outputs (convolutions recomputed too).
+    - ``"nothing"``: the backward recomputes the whole forward.
+
+    The selective policies act on aten ops; a hand-written kernel behind
+    a ``torch.autograd.Function`` (K1, the flash-attention forward) is
+    not an aten op, so under every policy but ``none`` its forward runs
+    again in the backward, as the JAX package's ``pallas_call`` is
+    recomputed under ``dots_saveable``."""
+    if name in (None, "", "none"):
+        return None
+    if name == "nothing":
+        return lambda: (contextlib.nullcontext(), contextlib.nullcontext())
+    if name not in ("convs_dots", "dots"):
+        raise MXNetError("unknown remat policy %r (none|convs_dots|dots|"
+                         "nothing)" % (name,))
+    from torch.utils.checkpoint import (
+        CheckpointPolicy, create_selective_checkpoint_contexts)
+    saved = _saved_ops(name)
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def _tree_map(fn, *trees):
@@ -143,8 +222,10 @@ def _float32_sums():
 
 
 class Trainer:
-    """Fused trainer for a Symbol on one device: the current context's
-    (``gpu(0)`` unless a ``with mx.cpu():`` scope says otherwise).
+    """Fused trainer for a Symbol on the current context's device
+    (``gpu(0)``, a worker's own card under the launcher, unless a ``with
+    mx.cpu():`` scope says otherwise), data-parallel over the ranks of
+    ``mesh``.
 
     Usage::
 
@@ -155,7 +236,10 @@ class Trainer:
         outs = t.step({"data": x, "softmax_label": y})
 
     ``graph_captures`` and ``graph_replays`` count the CUDA graphs
-    captured and replayed (0 on the CPU).
+    captured and replayed (0 on the CPU, and over gloo).  ``comm_s`` sums
+    the host seconds the collectives of the steps on a card took where
+    they are staged through the host (gloo:
+    ``collectives.host_comm_seconds``).
     """
 
     def __init__(self, symbol, optimizer, data_names: Sequence[str] = ("data",),
@@ -174,8 +258,8 @@ class Trainer:
                  integrity: Optional[str] = None,
                  integrity_period: Optional[int] = None,
                  plan=None):
-        if mesh is not None or param_specs:
-            raise MXNetError("a mesh (and its param_specs) %s" % MESH_SLICE)
+        if param_specs:
+            raise MXNetError("param_specs: %s" % AXIS_SLICE)
         if plan is not None or os.environ.get("MXTPU_TUNE_PLAN"):
             raise MXNetError("tune plans (plan=, MXTPU_TUNE_PLAN) wait for "
                              "the port's autotune slice")
@@ -200,10 +284,8 @@ class Trainer:
                 raise MXNetError("%s=%r is not an integer" % (what, value)) \
                     from None
 
-        remat = _knob(remat, "MXTPU_REMAT", "none")
-        if remat not in ("", "none"):
-            raise MXNetError("remat=%r: rematerialization waits for the "
-                             "port's remat slice" % (remat,))
+        self.remat = _knob(remat, "MXTPU_REMAT", "none")
+        self._remat_ctx = remat_policy(self.remat)
         # the backward formulations (op/bytediet.py): "bytediet" (the
         # default) or "legacy"
         self.dtype_policy = _knob(dtype_policy, "MXTPU_DTYPE_POLICY", None)
@@ -246,28 +328,53 @@ class Trainer:
             else os.environ.get("MXTPU_LS_GROWTH_INTERVAL",
                                 str(_LS_GROWTH_INTERVAL)))
         self._sent = None          # device sentinel state, _init_sentinel
-        zero = _as_int(_knob(zero, "MXTPU_ZERO", "0"), "zero (MXTPU_ZERO)")
-        if zero not in (0, 1):
+        self.zero = _as_int(_knob(zero, "MXTPU_ZERO", "0"),
+                            "zero (MXTPU_ZERO)")
+        if self.zero not in (0, 1):
             raise MXNetError("zero=%r: supported stages are 0 (replicated "
                              "optimizer state) and 1 (state sharded along "
                              "the data axis)" % (zero,))
-        if zero:
-            raise MXNetError("zero=1 (optimizer state sharded along the "
-                             "data axis) %s" % MESH_SLICE)
         grad_accum = _knob(grad_accum, "MXTPU_GRAD_ACCUM", "1")
         self.grad_accum = _as_int(grad_accum, "grad_accum (MXTPU_GRAD_ACCUM)")
         if self.grad_accum < 1:
             raise MXNetError("grad_accum=%r: need a microbatch count >= 1"
                              % (grad_accum,))
-        # knobs one device has no use for yet: only their defaults
-        if donate_batch:
-            raise MXNetError("donate_batch=True: the step copies each batch "
-                             "into its captured graph's input buffers; "
-                             "donating the batch waits for a later slice "
-                             "of the port")
-        if grad_dtype not in (None, "f32", "float32"):
-            raise MXNetError("grad_dtype=%r: the cross-chip gradient wire "
-                             "dtype %s" % (grad_dtype, MESH_SLICE))
+        if donate_batch is None:
+            donate_batch = os.environ.get("MXTPU_DONATE_BATCH", "0") \
+                not in ("", "0", "false", "False")
+        self.donate_batch = bool(donate_batch)
+        grad_dtype = _knob(grad_dtype, "MXTPU_GRAD_DTYPE", "f32")
+        wire = {"f32": "f32", "float32": "f32",
+                "bf16": "bf16", "bfloat16": "bf16"}
+        if grad_dtype not in wire:
+            raise MXNetError("grad_dtype=%r: bf16 or f32 (the cross-chip "
+                             "gradient wire dtype)" % (grad_dtype,))
+        self.grad_dtype = wire[grad_dtype]
+        # --- the data mesh: every rank of the process group, in order
+        self.mesh = mesh
+        self._ndata, self._rank = 1, 0
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise MXNetError("mesh=%r is not a parallel.Mesh" % (mesh,))
+            world = _coll._process_count()
+            if mesh.ranks != list(range(world)):
+                raise MXNetError(
+                    "a mesh over ranks %s in a process group of %d: the "
+                    "fused step spans every rank" % (mesh.ranks, world))
+            self._ndata, self._rank = world, _coll._process_index()
+        # the in-step sum runs whenever a process group is up, even at
+        # one rank; zero=1 and the bf16 wire only across ranks
+        self._comm = mesh is not None and _coll.backend() is not None
+        self._zero_on = self.zero == 1 and self._ndata > 1
+        self._lowp_on = self.grad_dtype == "bf16" and self._ndata > 1
+        self._host_comm = self._comm and _coll.backend() == "gloo" \
+            and self.device.type == "cuda"
+        # BatchNorm over the whole batch: the float32 wire's step (the
+        # JAX package's GSPMD program); the bfloat16 wire's is per rank
+        self._sync_bn = self._comm and self._ndata > 1 and not self._lowp_on
+        self._in_step = False
+        self._zero_dims = {}
+        self.comm_s = 0.0
         if integrity is None:
             integrity = os.environ.get("MXTPU_INTEGRITY_MODE", "off")
         if integrity not in ("off", "fp", "vote", "audit"):
@@ -284,6 +391,16 @@ class Trainer:
         self.aux_names = list(self.prog.aux_names)
         self.has_rng = any(getattr(n.op, "uses_rng", False)
                            for n in self.prog.nodes if not n.is_variable)
+        # the ranks draw different masks (the JAX package folds the data
+        # axis index into its key), from a generator of their own
+        self._rank_gen = None
+        if self.has_rng and self._ndata > 1:
+            self._rank_gen = torch.Generator(device=self.device).manual_seed(
+                _random._SEED + 1000003 * self._rank)
+        # under remat, the recompute draws from a twin of the generator,
+        # set to the generator's state before each step
+        self._twin = torch.Generator(device=self.device) \
+            if self.has_rng and self._remat_ctx is not None else None
         self.params = None
         self.aux = None
         self.opt_state = None
@@ -367,6 +484,15 @@ class Trainer:
         self._arg_shapes = arg_map
         self._aux_shapes = dict(zip(self.aux_names, aux_shapes))
         self._input_shapes = input_shapes
+        # the dim of each parameter whose rows a rank owns under zero=1
+        # (mesh.zero_spec; None: no dim divides, the leaf stays whole);
+        # dim 0 is also the bfloat16 wire's reduce-scatter
+        n = self._ndata
+        self._zero_dims = {}
+        for m in self.param_names:
+            spec = zero_spec(PartitionSpec(), arg_map[m], n) if n > 1 else ()
+            self._zero_dims[m] = next(
+                (d for d, e in enumerate(spec) if e == "data"), None)
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     force_init=False):
@@ -400,7 +526,9 @@ class Trainer:
         with torch.no_grad():
             self.params = self._assign(self.params, params)
             self.aux = self._assign(self.aux, aux)
-            self.opt_state = self._assign(self.opt_state, init_fn(params))
+            # under zero=1 each rank's state is born as its rows
+            self.opt_state = self._assign(self.opt_state, init_fn(
+                {m: self._shard(p, m) for m, p in params.items()}))
         if self.sentinel != "off" and self._sent is None:
             # once per trainer, not per (re-)init: the skip counters and
             # the effective update cursor survive a parameter refresh
@@ -421,6 +549,162 @@ class Trainer:
             return new
         _tree_map(lambda a, b: a.copy_(b), old, new)
         return old
+
+    # ------------------------------------------------------------------
+    # ZeRO-1 rows and the collectives of the step
+    def _shard(self, t, name):
+        """This rank's rows of a whole leaf of ``name`` under zero=1 (a
+        view; the leaf itself when ``name`` is not sharded)."""
+        d = self._zero_dims.get(name)
+        if d is None or not self._zero_on:
+            return t
+        k = t.shape[d] // self._ndata
+        return t.narrow(d, self._rank * k, k)
+
+    def _gather(self, shards, names):
+        """Whole leaves from every rank's rows of ``names``: one
+        all-gather of the rows packed into one buffer."""
+        n = self._ndata
+        flat = torch.cat([shards[m].movedim(self._zero_dims[m], 0)
+                          .reshape(-1) for m in names])
+        rows = _coll.all_gather(flat, n).reshape(n, -1)
+        out, off = {}, 0
+        for m in names:
+            d, k = self._zero_dims[m], shards[m].numel()
+            moved = list(shards[m].movedim(d, 0).shape)
+            moved[0] *= n
+            out[m] = rows[:, off:off + k].reshape(moved).movedim(0, d)
+            off += k
+        return out
+
+    def _allreduce_flat(self, tensors):
+        """The sum over every rank of each tensor: one all-reduce of
+        them all, packed into one float32 buffer."""
+        flat = torch.cat([t.reshape(-1) for t in tensors.values()])
+        _coll.all_reduce_(flat)
+        out, off = {}, 0
+        for m, t in tensors.items():
+            out[m] = flat[off:off + t.numel()].reshape(t.shape)
+            off += t.numel()
+        return out
+
+    def _reduce_scatter_flat(self, grads, names):
+        """Each rank's rows of the sum over ranks of ``names``' leaves:
+        one reduce-scatter of the leaves' rows packed rank-major."""
+        n = self._ndata
+        # each leaf with its sharded dim first, as n rows: row i holds
+        # rank i's slice
+        rows = torch.cat([grads[m].movedim(self._zero_dims[m], 0)
+                          .reshape(n, -1) for m in names], 1)
+        mine = _coll.reduce_scatter(rows.reshape(-1), n)
+        out, off = {}, 0
+        for m in names:
+            d = self._zero_dims[m]
+            moved = list(grads[m].movedim(d, 0).shape)
+            moved[0] //= n
+            k = int(np.prod(moved))
+            out[m] = mine[off:off + k].reshape(moved).movedim(0, d)
+            off += k
+        return out
+
+    def _lowp_sum(self, grads):
+        """``grad_dtype="bf16"``: ``collectives.lowp_allreduce`` over
+        every leaf, the leaves packed into two calls.  The leaves whose
+        dim 0 divides by n go in as n rows (row i: every leaf's rows of
+        rank i), so one all-to-all serves them all (under zero=1 the
+        float32 rows stay, as ``keep_shard`` keeps them); the rest go in
+        as one row, which takes the all-gather and a float32 sum."""
+        n, cd = self._ndata, torch.bfloat16
+        split = [m for m in self.param_names if self._zero_dims[m] == 0]
+        whole = [m for m in self.param_names if m not in split]
+        out = {}
+        if split:
+            summed = _coll.lowp_allreduce(
+                torch.cat([grads[m].reshape(n, -1) for m in split], 1),
+                "data", n, cd, keep_shard=self._zero_on)
+            off = 0
+            for m in split:
+                g = grads[m]
+                size = g.numel() // n
+                if self._zero_on:
+                    out[m] = summed[0, off:off + size].reshape(
+                        (g.shape[0] // n,) + tuple(g.shape[1:]))
+                else:
+                    out[m] = summed[:, off:off + size].reshape(g.shape)
+                off += size
+        if whole:
+            summed = _coll.lowp_allreduce(
+                torch.cat([grads[m].reshape(1, -1) for m in whole], 1),
+                "data", n, cd)[0]
+            off = 0
+            for m in whole:
+                g = summed[off:off + grads[m].numel()].reshape(grads[m].shape)
+                out[m] = self._shard(g, m)
+                off += grads[m].numel()
+        return out
+
+    def _sync_grads(self, grads):
+        """The gradients summed over the data axis (under zero=1, this
+        rank's rows of each sharded leaf)."""
+        if self._lowp_on:
+            return self._lowp_sum(grads)
+        if not self._zero_on:
+            return self._allreduce_flat(grads)
+        split = [m for m in self.param_names
+                 if self._zero_dims[m] is not None]
+        out = self._reduce_scatter_flat(grads, split) if split else {}
+        whole = {m: grads[m] for m in self.param_names if m not in out}
+        if whole:
+            out.update(self._allreduce_flat(whole))
+        return out
+
+    def _mean_aux(self, new_aux):
+        """BatchNorm's moving statistics averaged over the ranks, where
+        each normalises by its own rows (the bfloat16 wire), so every
+        rank keeps the same aux states."""
+        idx = [i for i, v in enumerate(new_aux) if v.is_floating_point()]
+        if not idx:
+            return new_aux
+        summed = self._allreduce_flat({i: new_aux[i] for i in idx})
+        out = list(new_aux)
+        for i in idx:
+            out[i] = summed[i] / self._ndata
+        return tuple(out)
+
+    def _rng(self):
+        """The generator the graph's samplers draw from."""
+        if self._rank_gen is not None:
+            return self._rank_gen
+        return _random.generator(self.device)
+
+    def opt_state_bytes_per_chip(self) -> int:
+        """Optimizer-state bytes this rank holds (1/n of a sharded
+        leaf's under zero=1)."""
+        return int(sum(v.numel() * v.element_size()
+                       for v in _leaves(self.opt_state or {})))
+
+    def grad_comm_bytes_per_step(self) -> int:
+        """Per-rank gradient wire bytes of one step, by the ring model
+        (0 without a data axis over more than one rank): float32,
+        ``2(n-1)/n`` of the gradient bytes (an all-reduce; under zero=1
+        a reduce-scatter of the sharded leaves, ``(n-1)/n``); bfloat16,
+        ``collectives.lowp_comm_bytes`` per leaf."""
+        n = self._ndata
+        if n <= 1:
+            return 0
+        total = 0.0
+        for m in self.param_names:
+            shape = tuple(self._arg_shapes[m])
+            size = int(np.prod(shape or (1,)))
+            if self._lowp_on:
+                total += _coll.lowp_comm_bytes(
+                    shape, n, 2,
+                    keep_shard=self._zero_on and self._zero_dims[m] == 0)
+            elif self._zero_on and self._zero_dims[m] is not None:
+                total += (n - 1) / n * size * 4
+            else:
+                total += 2 * (n - 1) / n * size * 4
+        return int(total)
 
     def _init_sentinel(self, t, skips=0, scale=None):
         """Fresh device sentinel state.  ``t`` is the effective update
@@ -446,10 +730,14 @@ class Trainer:
         self._graphs.clear()
         self._warm.clear()
 
-    def _forward(self, params, aux_vals, batch, is_train):
+    def _forward(self, params, aux_vals, batch, is_train, rng=None):
         """The graph over ``params`` and ``batch``, in the compute dtype:
         uint8 inputs become floats here, and under ``compute_dtype``
-        every floating param, input and aux state is cast to it."""
+        every floating param, input and aux state is cast to it.  The
+        samplers draw from ``rng`` (the trainer's generator by
+        default).  Inside the step under the float32 wire, BatchNorm's
+        sums cover every rank's rows (``forward_train`` keeps a rank's:
+        it runs no collective)."""
         cd = self.compute_dtype
         batch = {n: (v.to(cd or torch.float32)
                      if v.dtype == torch.uint8 else v)
@@ -463,15 +751,44 @@ class Trainer:
                         for v in aux_vals]
         vals = [params[n] if n in params else batch[n]
                 for n in self.prog.arg_names]
+        sync = self._sync_bn and self._in_step
         return self.prog._eval(vals, list(aux_vals), self.device,
-                               is_train=is_train)
+                               is_train=is_train,
+                               rng=rng if rng is not None else self._rng(),
+                               batch_sum=_coll.sum_over_ranks if sync
+                               else None,
+                               batch_ranks=self._ndata if sync else 1)
+
+    def _remat_forward(self, leaves, aux_vals, batch):
+        """The training forward under a non-reentrant
+        ``torch.utils.checkpoint`` with the remat policy's context.  The
+        recompute draws from the twin generator, which ``step`` sets to
+        the generator's state before the forward, so Dropout draws the
+        masks of the forward again (``preserve_rng_state`` would restore
+        only PyTorch's default generators, not the port's)."""
+        from torch.utils.checkpoint import checkpoint
+        names = list(leaves)
+        calls = []
+
+        def fwd(*values):
+            rng = self._twin if calls else None
+            calls.append(1)
+            return self._forward(dict(zip(names, values)), aux_vals, batch,
+                                 True, rng=rng)
+
+        return checkpoint(fwd, *(leaves[m] for m in names),
+                          use_reentrant=False, preserve_rng_state=False,
+                          context_fn=self._remat_ctx)
 
     def _micro_backward(self, params, aux_vals, batch, scale):
         """One microbatch forward and backward: ``(outputs, new aux,
         float32 gradients)``, the loss scale still in the gradients."""
         leaves = {n: p.detach().requires_grad_() for n, p in params.items()}
         with torch.enable_grad():
-            outs, new_aux = self._forward(leaves, aux_vals, batch, True)
+            if self._remat_ctx is None:
+                outs, new_aux = self._forward(leaves, aux_vals, batch, True)
+            else:
+                outs, new_aux = self._remat_forward(leaves, aux_vals, batch)
         # cotangent seeds in the OUTPUT dtype (bfloat16 under
         # compute_dtype), the loss scale riding them; an expanded scalar,
         # so no seed the size of the logits is written
@@ -521,13 +838,28 @@ class Trainer:
         with _float32_sums():
             outs, new_aux, grads = self._accum_backward(params, aux_vals,
                                                         batch, scale)
+        if self._comm:
+            grads = self._sync_grads(grads)
+            if not self._sync_bn:
+                new_aux = self._mean_aux(new_aux)
         if scale is not None:
             inv = 1.0 / scale
             grads = {n: g * inv for n, g in grads.items()}
         return outs, new_aux, grads
 
     def _apply_update(self, params, grads, opt_state, lr, t):
-        return self._update_fn(params, grads, opt_state, lr, t)
+        """The optimizer's rule; under zero=1 on this rank's rows of each
+        sharded leaf, whose updated rows are then all-gathered."""
+        if not self._zero_on:
+            return self._update_fn(params, grads, opt_state, lr, t)
+        rows = {m: self._shard(p, m) for m, p in params.items()}
+        new_rows, new_state = self._update_fn(rows, grads, opt_state, lr, t)
+        split = [m for m in self.param_names
+                 if self._zero_dims[m] is not None]
+        new_params = dict(new_rows)
+        if split:
+            new_params.update(self._gather(new_rows, split))
+        return new_params, new_state
 
     def _write(self, params, aux, opt_state, sent=None):
         """Write a step's results into the state tensors, in place."""
@@ -562,6 +894,10 @@ class Trainer:
                                                   batch, scale)
         finite = torch.stack([torch.isfinite(grads[n]).all()
                               for n in self.param_names]).all()
+        if self._zero_on:
+            # each rank holds its rows: the verdict is every rank's
+            bad = _coll.all_reduce_((~finite).float().reshape(1))
+            finite = bad[0] == 0
         t_eff = sent["t"] + 1
         new_params, new_state = self._apply_update(
             self.params, grads, self.opt_state, self._lr, t_eff)
@@ -595,10 +931,14 @@ class Trainer:
         return tuple(o.float() for o in outs)
 
     def _step_core(self, batch):
-        with torch.no_grad():
-            if self._sent is not None:
-                return self._step_sentinel(batch)
-            return self._step_plain(batch)
+        self._in_step = True
+        try:
+            with torch.no_grad():
+                if self._sent is not None:
+                    return self._step_sentinel(batch)
+                return self._step_plain(batch)
+        finally:
+            self._in_step = False
 
     def _graph_step(self, batch):
         """The step on a CUDA device: an eager warm-up the first time a
@@ -635,7 +975,9 @@ class Trainer:
         graph = torch.cuda.CUDAGraph()
         if self.has_rng:
             # each replay then draws the numbers after the last replay's
-            graph.register_generator_state(_random.generator(self.device))
+            graph.register_generator_state(self._rng())
+            if self._twin is not None:
+                graph.register_generator_state(self._twin)
         torch.cuda.synchronize(self.device)
         try:
             # thread_local: an input pipeline's threads (fit's upload
@@ -667,6 +1009,12 @@ class Trainer:
                 v = v.data
             elif not isinstance(v, torch.Tensor):
                 v = torch.from_numpy(np.ascontiguousarray(v))
+            if self.donate_batch and v.numel() == 0 \
+                    and math.prod(self._input_shapes[n]):
+                raise MXNetError(
+                    "batch member %r is empty: a tensor given up to an "
+                    "earlier step (donate_batch=True) cannot be fed again"
+                    % (n,))
             out[n] = v.to(device=self.device, dtype=_NARROW.get(v.dtype,
                                                                 v.dtype))
         return out
@@ -688,10 +1036,16 @@ class Trainer:
             self._lr.fill_(lr)
             self._lr_cache = lr
         self._t.fill_(max(1, self.num_update))
-        if self.device.type == "cuda":
+        if self._twin is not None:
+            self._twin.set_state(self._rng().get_state())
+        c0 = _coll.host_comm_seconds()
+        if self.device.type == "cuda" and not self._host_comm:
             outs = self._graph_step(dev_batch)
         else:
             outs = self._step_core(dev_batch)
+        self.comm_s += _coll.host_comm_seconds() - c0
+        if self.donate_batch:
+            self._donate(dev_batch, outs)
         if self._sent is not None and self.sentinel == "abort":
             # abort accepts a device->host read per step: the point IS to
             # stop the moment K batches in a row went bad
@@ -703,6 +1057,22 @@ class Trainer:
                     "aborting (MXTPU_SENTINEL=abort)"
                     % (consec, self.sentinel_max_skips, self.num_update))
         return [NDArray(o) for o in outs]
+
+    def _donate(self, batch, outs):
+        """Give up each batch tensor the step has read (``donate_batch``):
+        one that is the whole of its storage is emptied (``set_()``), so
+        its memory goes back to the allocator once the step's work on it
+        is done; a view of a larger storage, and a storage an output
+        shares, stay."""
+        kept = {o.untyped_storage().data_ptr() for o in outs}
+        for v in batch.values():
+            store = v.untyped_storage()
+            if (v.storage_offset() or store.data_ptr() in kept
+                    or store.nbytes() != v.numel() * v.element_size()):
+                continue
+            if v.is_cuda:
+                v.record_stream(torch.cuda.current_stream(v.device))
+            v.set_()
 
     @property
     def sentinel_skips(self) -> int:
@@ -737,19 +1107,36 @@ class Trainer:
         return self._eval(batch, True)
 
     # ------------------------------------------------------------------
+    def _whole_state(self):
+        """The optimizer state with every rank's rows of a sharded leaf
+        gathered (a collective under zero=1: every rank calls it)."""
+        if not self._zero_on:
+            return self.opt_state
+        out = {}
+        for m, tree in self.opt_state.items():
+            d = self._zero_dims[m]
+            rows = tuple(self._shard(self.params[m], m).shape)
+
+            def whole(v, m=m, d=d, rows=rows):
+                if d is None or tuple(v.shape) != rows:
+                    return v
+                return self._gather({m: v}, [m])[m]
+            out[m] = _tree_map(whole, tree)
+        return out
+
     def get_opt_states(self) -> bytes:
         """Serialize ``(num_update, optimizer state, sentinel state or
-        None, random state)``: the state as CPU tensors, the sentinel's
-        counters and loss scale as numbers, and the device generator's
-        state when the graph draws (Dropout), so a resumed run draws the
-        masks the uninterrupted one would.  The port's own pickle
-        format: the JAX package's files hold numpy arrays and do not
-        load here."""
-        state = _tree_map(lambda v: v.detach().cpu(), self.opt_state)
+        None, random state)``: the state as CPU tensors (whole leaves,
+        gathered from every rank under zero=1, so a blob restores across
+        ``zero`` settings), the sentinel's counters and loss scale as
+        numbers, and the generator's state when the graph draws
+        (Dropout), so a resumed run draws the masks the uninterrupted
+        one would.  The port's own pickle format: the JAX package's
+        files hold numpy arrays and do not load here."""
+        state = _tree_map(lambda v: v.detach().cpu(), self._whole_state())
         sent = None if self._sent is None else \
             {k: v.item() for k, v in self._sent.items()}
-        rng = _random.generator(self.device).get_state() \
-            if self.has_rng else None
+        rng = self._rng().get_state() if self.has_rng else None
         return pickle.dumps((self.num_update, state, sent, {"rng": rng}))
 
     def set_opt_states(self, blob: bytes) -> None:
@@ -784,6 +1171,13 @@ class Trainer:
                         n, _structure(state[n]),
                         type(self.optimizer).__name__,
                         _structure(self.opt_state[n])))
+        if self._zero_on:
+            # this rank's rows of each whole leaf of a sharded weight
+            state = {m: _tree_map(
+                lambda v, m=m: self._shard(v, m) if isinstance(
+                    v, torch.Tensor) and tuple(v.shape) == tuple(
+                        self._arg_shapes[m]) else v, tree)
+                for m, tree in state.items()}
         for cur, new in zip(_leaves(self.opt_state), _leaves(state)):
             if not isinstance(new, torch.Tensor):
                 raise MXNetError(
@@ -811,7 +1205,7 @@ class Trainer:
                     self._sent[k].fill_(v)
         rng = (extra or {}).get("rng")
         if rng is not None and self.has_rng:
-            _random.generator(self.device).set_state(rng)
+            self._rng().set_state(rng)
 
     def get_params(self):
         """Copies of the trained params and aux states, as NDArrays on the

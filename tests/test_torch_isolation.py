@@ -17,8 +17,10 @@ FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
 def _port_sources():
+    """The port's modules, the card's smoke script and the worker script
+    the launcher starts for the data-parallel tests."""
     return sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"]
 
 
 def _imported_modules(path):

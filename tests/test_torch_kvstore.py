@@ -154,10 +154,20 @@ def test_the_stores_and_their_errors_match():
 
 
 def test_a_dist_store_over_several_processes_raises(monkeypatch):
+    """A dist store takes its rank and worker count from the process
+    group (several processes are ported: ``test_torch_dist_parallel``);
+    a rank other than 0 refuses to save the optimizer state, as the JAX
+    package's does, and ``dist_async`` still raises."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
-    with pytest.raises(mt.MXNetError, match="4 processes.*item 5"):
-        tkv.create("dist_sync_tpu")
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 3)
+    kv = tkv.create("dist_sync_tpu")
+    assert (kv.rank, kv.num_workers) == (3, 4)
+    kv.set_optimizer(mt.optimizer.SGD())
+    with pytest.raises(mt.MXNetError, match="rank-0-only"):
+        kv.save_optimizer_states("unused.states")
+    with pytest.raises(mt.MXNetError, match="dist_async"):
+        tkv.create("dist_async")
     assert tkv.create("local").num_workers == 1
 
 

@@ -408,12 +408,62 @@ def test_make_update_fn_decays_weights_not_biases():
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(zero=1), dict(remat="dots"),
-    dict(integrity="fp"), dict(plan={}), dict(donate_batch=True),
-    dict(grad_dtype="bf16"), dict(integrity_period=10)])
+    dict(param_specs={"fc1_weight": ("model",)}), dict(integrity="fp"),
+    dict(plan={}), dict(integrity_period=10), dict(mesh=object()),
+    dict(zero=1), dict(remat="dots"), dict(donate_batch=True),
+    dict(grad_dtype="bf16")])
 def test_options_of_later_slices_raise(option):
-    with mt.cpu(), pytest.raises(mt.MXNetError, match="slice"):
-        Trainer(_mlp(mt), mt.optimizer.SGD(), **option)
+    """What waits for a later slice raises naming it; a mesh must be the
+    port's; the data-parallel knobs and remat are taken (zero=1 and the
+    bfloat16 wire inert without a mesh, as in the JAX package)."""
+    taken = ("zero", "remat", "donate_batch", "grad_dtype")
+    with mt.cpu():
+        if set(option) & set(taken):
+            t = Trainer(_mlp(mt), mt.optimizer.SGD(), **option)
+            assert not (t._zero_on or t._lowp_on or t._comm)
+            return
+        with pytest.raises(mt.MXNetError,
+                           match="slice|item 7|not a parallel.Mesh"):
+            Trainer(_mlp(mt), mt.optimizer.SGD(), **option)
+
+
+@pytest.mark.parametrize("knob", ["ctor", "env"])
+def test_donated_batches_are_given_up_and_never_written(monkeypatch, knob):
+    """``donate_batch`` (the argument, or ``MXTPU_DONATE_BATCH`` as a
+    Module's trainer reads it): two batches that are rows of one dataset
+    tensor, fed in turn, stay as they were, and a batch tensor that is
+    the whole of its storage is emptied after its step; the parameters
+    equal a trainer's that keeps every batch."""
+    batches = _mlp_batches(2)
+    init = _jax_run(_mlp(mx), mx.optimizer.SGD(), batches[:1])[0]
+    data = torch.from_numpy(np.concatenate([b["data"] for b in batches]))
+    label = torch.from_numpy(np.concatenate(
+        [b["softmax_label"] for b in batches]))
+    kept = (data.clone(), label.clone())
+    params = {}
+    for donate in (False, True):
+        if knob == "env":
+            monkeypatch.setenv("MXTPU_DONATE_BATCH", "1" if donate else "0")
+        kw = {"donate_batch": donate} if knob == "ctor" else {}
+        t = _port_trainer(_mlp(mt), mt.optimizer.SGD(learning_rate=0.5,
+                                                     momentum=0.9),
+                          batches[0], init, **kw)
+        assert t.donate_batch is donate
+        for step in range(4):
+            rows = slice(8 * (step % 2), 8 * (step % 2) + 8)
+            t.step({"data": data[rows], "softmax_label": label[rows]})
+        whole = {"data": data[:8].clone(), "softmax_label": label[:8].clone()}
+        t.step(whole)
+        assert all(v.numel() == (0 if donate else 8 * (10 if n == "data"
+                                                       else 1))
+                   for n, v in whole.items())
+        if donate:
+            with pytest.raises(mt.MXNetError, match="donate_batch"):
+                t.step(whole)
+        params[donate] = {k: v.clone() for k, v in t.params.items()}
+        assert torch.equal(data, kept[0]) and torch.equal(label, kept[1])
+    for k in params[False]:
+        assert torch.equal(params[True][k], params[False][k]), k
 
 
 def test_the_default_device_is_the_card(monkeypatch):
