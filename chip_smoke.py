@@ -199,14 +199,40 @@ fails:
    the forward's masks; and ``donate_batch=True`` fed the rows of one
    on-card dataset in turn (left as they were) and whole batch tensors
    (each emptied after its step), bitwise a trainer that keeps them;
-27. times: each kernel, its plain version and the PyTorch library call
+27. integrity: the fused step's silent-data-corruption defence on
+   GPT-2 small in bfloat16 (train_fused_bf16's cell) and on the ResNet-50
+   cell: ``integrity="fp"`` at period 1 over 12 steps bitwise ``off``,
+   its check a CUDA graph of its own; the device fingerprint of the
+   state equal to the host's over the state copied off the card; the
+   check's device time beside a step replay's and its share of a step at
+   the default period of 100; the replay audit clean over 12 steps (5 on
+   ResNet-50) and ``bitflip@step=6`` detected at step 6; ``Module.fit``
+   with a ``CheckpointManager`` under the audit, a flip in its second
+   epoch rolled back to the newest verified checkpoint, ending bitwise a
+   run without the fault; K1-bf16 and B2-bf16 launched;
+28. integrity_vote: ``tools/launch.py -n 2``, two gloo ranks on the
+   card, GPT-2 small in bfloat16 at 4 rows a rank under ``vote``, at
+   zero 0 and 1: a flip on rank 1 raises on both ranks at the next check
+   with the blame undetermined, the replay from the start blames rank 1
+   and ends bitwise a run without the fault (over NCCL, a rank a card,
+   where the machine has two cards or more: the check captured, the
+   majority blaming at detection);
+29. elastic_shrink: ``tools/launch.py --local-elastic 2`` runs
+   ``tests/torch_elastic_train.py --model gpt2`` with rank 1 killed at
+   its step-4 guard (``host_dead``): rank 0 publishes the shrink with
+   rank 1 dead, the launcher relaunches one worker (``shrinking 2 ->
+   1``), which resumes from the newest checkpoint; ``ELASTIC_RECOVERY_S``,
+   each process's longest interpreter-lock stall, and the final
+   parameters bitwise a one-process ``--replay`` from the same checkpoint
+   epoch;
+30. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
    Predictor's requests/s and tokens/s; rtc kernels at size (axpy over
    2^26 floats, the block's GELU) and the host cost of one push.
 
-The line before the last is one JSON object with a record per kernel;
-the last line names the device.
+The script's whole time follows, then one JSON object with a record per
+kernel; the last line names the device.
 """
 import gc
 import importlib.util
@@ -669,8 +695,12 @@ def _emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+_T0 = time.perf_counter()
+
+
 def _phase(name):
-    print("== %s" % name, flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print("== %s (%.1f s)" % (name, time.perf_counter() - _T0), flush=True)
 
 
 def _qkv(b, t_q, t_kv, h, d, dtype, seed):
@@ -5815,19 +5845,20 @@ def _card_flags():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def run_workers(n, case):
+def run_workers(n, case, env=None):
     """``python tools/launch.py -n N --launcher local -- python3
     chip_smoke.py dist_child <case> <dir>``: the launcher's workers join
-    one ``torch.distributed`` group at import.  Returns each rank's
-    result (``<dir>/rank<r>.json``) and the wall seconds.  A worker that
-    fails fails the phase; on a timeout the whole process group is
-    killed."""
+    one ``torch.distributed`` group at import (``env``: variables set for
+    them).  Returns each rank's result (``<dir>/rank<r>.json``) and the
+    wall seconds.  A worker that fails fails the phase; on a timeout the
+    whole process group is killed."""
     out = tempfile.mkdtemp(prefix="mxtpu-dist-")
     cmd = [sys.executable, os.path.join(ROOT, "tools", "launch.py"),
            "-n", str(n), "--launcher", "local", "--", sys.executable,
            os.path.abspath(__file__), "dist_child", case, out]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True)
+    proc = subprocess.Popen(cmd, cwd=ROOT, start_new_session=True,
+                            env=dict(os.environ, **(env or {})))
     try:
         code = proc.wait(timeout=DIST_TIMEOUT_S)
     except subprocess.TimeoutExpired:
@@ -6551,6 +6582,492 @@ def dist_across_cards(card):
     return record
 
 
+# ----------------------------------------------------------------------
+# integrity, integrity_vote, elastic_shrink: the silent-data-corruption
+# defence around the captured step, and elastic membership
+INTEG_STEPS = 12          # off against fp at period 1, and the audit
+INTEG_FLIP_STEP = 6       # bitflip@step=6 under audit: detected at 6
+INTEG_BUDGET = 0.02       # bench.py:1183: the check's share at period 100
+INTEG_RESNET_STEPS = 5    # the ResNet-50 cell's audit
+# the fit with a rollback: GPT-2's cell, 2 epochs of TRAIN_BATCHES steps,
+# an audit every step, bitflip at the second step of the second epoch
+INTEG_FIT_EPOCHS, INTEG_FIT_FLIP = 2, TRAIN_BATCHES + 2
+# integrity_vote: two gloo ranks on the card, GPT-2 small in bfloat16 at
+# VOTE_ROWS rows a rank, a check every VOTE_PERIOD updates, a flip on
+# rank 1 after update VOTE_FLIP, detected by the next check (update
+# VOTE_FLIP + 1), VOTE_STEPS steps a run
+VOTE_ROWS, VOTE_PERIOD, VOTE_FLIP, VOTE_STEPS = 4, 1, 1, 2
+# elastic_shrink: tests/torch_elastic_train.py --model gpt2 (2 epochs of
+# 2 steps a rank, a 20 s heartbeat timeout: at 4 s a rank saving its 2 GB
+# checkpoint was once declared dead); rank 1 dies at its step-4 guard,
+# rank 0 resumes from epoch 1's checkpoint
+ELASTIC_FAULT = "host_dead@step=4:rank=1"
+ELASTIC_TIMEOUT_S = 600
+
+
+class _env_scope:
+    """Environment variables set inside the scope, restored after."""
+
+    def __init__(self, **values):
+        self.values, self.saved = values, {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _integrity_cell(mode, period, cell="gpt2"):
+    """gpt2_train_cell's fused bfloat16 module (or resnet_cell's), its
+    Trainer made under ``integrity=mode`` every ``period`` updates; with
+    the batch to step and the step count the cell's iterator holds."""
+    with _env_scope(MXTPU_INTEGRITY_MODE=mode,
+                    MXTPU_INTEGRITY_PERIOD=str(period)):
+        if cell == "gpt2":
+            mod, data, x, y, _ = gpt2_train_cell(True, "bfloat16")
+            batches = [(x[i * BATCH:(i + 1) * BATCH],
+                        y[i * BATCH:(i + 1) * BATCH])
+                       for i in range(TRAIN_BATCHES)]
+        else:
+            mod, data, x, y, _ = resnet_cell()
+            batches = [(x, y)]
+    if mod._trainer._integ_mode != mode:
+        raise AssertionError("the trainer resolved %s to %s"
+                             % (mode, mod._trainer._integ_mode))
+    return mod, data, batches
+
+
+def _integrity_steps(mod, batches, n):
+    """``n`` fused steps over ``batches`` in turn; each step's seconds
+    (host clock between synchronisations)."""
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _fused_step(mod, *batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def _free(*objs):
+    del objs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _check_cost(tr):
+    """The check graph's device time (CUDA events, median of 20 replays)
+    against one replay of the step graph: ms each, and the check's share
+    of a step at the default period of 100."""
+    graph = next(iter(tr._graphs.values()))[0]
+    check_ms = cuda_ms(tr._run_check)
+    replay_ms = cuda_ms(graph.replay, iters=10)
+    return {"check_ms": check_ms, "replay_ms": replay_ms,
+            "overhead_at_100": check_ms / (100 * replay_ms),
+            "state_words": sum(v.numel() for _, v in tr._named_state()),
+            "leaves": len(tr._integ_paths)}
+
+
+def _audit_run(cell, steps, fault=None, cost=False):
+    """``steps`` audited steps of the cell (a check every update), under
+    ``fault``; the IntegrityError's record (or None), the divergence
+    count, each step's seconds and the trainer's graph counts; with
+    ``cost``, the check graph's (``_check_cost``)."""
+    mod, _, batches = _integrity_cell("audit", 1, cell)
+    tr = mod._trainer
+    if fault:
+        mt.faults.configure(fault)
+    rec, times = None, []
+    try:
+        times = _integrity_steps(mod, batches, steps)
+    except mt.integrity.IntegrityError as e:
+        rec = e.record
+    finally:
+        mt.faults.clear()
+    out = {"record": rec, "divergences": tr.integrity_divergences,
+           "step_ms": [t * 1e3 for t in times],
+           "graphs": (tr.graph_captures, tr.graph_replays),
+           "num_update": tr.num_update}
+    if cost:
+        out["cost"] = _check_cost(tr)
+    _free(mod, tr)
+    return out
+
+
+def _integrity_fit(prefix, fault):
+    """``Module.fit`` of GPT-2's cell under the audit, with a checkpoint
+    an epoch under ``prefix`` (none without one); the final parameters'
+    digest, the divergences and the rollback count."""
+    mod, data, _ = _integrity_cell("audit", 1)
+    mgr = mt.resilience.CheckpointManager(prefix, keep=2) if prefix \
+        else None
+    before = mt.obs.snapshot()["counters"].get("integrity.rollbacks", 0)
+    if fault:
+        mt.faults.configure(fault)
+    try:
+        mod.fit(data, num_epoch=INTEG_FIT_EPOCHS, optimizer="adam",
+                optimizer_params={"learning_rate": TRAIN_LR},
+                checkpoint=mgr, eval_metric=mt.metric.Perplexity(None))
+    finally:
+        mt.faults.clear()
+    tr = mod._trainer
+    out = {"digest": _digest(tr.params),
+           "divergences": tr.integrity_divergences,
+           "rollbacks": mt.obs.snapshot()["counters"].get(
+               "integrity.rollbacks", 0) - before,
+           "num_update": tr.num_update}
+    _free(mod, tr, data)
+    return out
+
+
+def integrity(card):
+    """The fused step's integrity modes on GPT-2 small in bfloat16 (the
+    cell of train_fused_bf16) and on the ResNet-50 cell: ``fp`` at
+    period 1 over INTEG_STEPS steps bitwise ``off``; the device
+    fingerprint against the host's over the state copied off the card;
+    the check graph's time beside a step replay's (and its share at the
+    default period, reported against INTEG_BUDGET); the audit clean over
+    INTEG_STEPS steps (INTEG_RESNET_STEPS on ResNet-50) and a bitflip
+    detected at its step; ``fit`` rolled back to the newest verified
+    checkpoint and ending bitwise a run without the fault."""
+    _phase("integrity")
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    record = {"integrity": "gpt2-small bf16 fused batch %d; resnet-50 "
+              "bf16 batch %d" % (BATCH, RESNET_BATCH), "card": card}
+    digests, steps = {}, {}
+    for mode in ("off", "fp"):
+        mod, _, batches = _integrity_cell(mode, 1)
+        tr = mod._trainer
+        steps[mode] = _integrity_steps(mod, batches, INTEG_STEPS)
+        digests[mode] = _digest(tr.params)
+        if mode == "fp":
+            rec = tr.state_fingerprint()
+            named = [(p, v.cpu()) for p, v in tr._named_state(whole=True)]
+            host = mt.integrity.host_fingerprint(named)
+            del named
+            record["device_vs_host"] = {
+                "global": [rec["global"], host[0]],
+                "leaves_equal": rec["leaves"] == host[1]}
+            record["checks"] = {"captures": tr.check_captures,
+                                "replays": tr.check_replays}
+            record["gpt2"] = _check_cost(tr)
+        _free(mod, tr)
+    record["fp_bitwise_off"] = digests["off"] == digests["fp"]
+    record["step_ms"] = {m: statistics.median(v[2:]) * 1e3
+                         for m, v in steps.items()}
+    audits = {"gpt2_clean": _audit_run("gpt2", INTEG_STEPS),
+              "gpt2_flip": _audit_run(
+                  "gpt2", INTEG_STEPS,
+                  "bitflip@step=%d:rank=0" % INTEG_FLIP_STEP),
+              "resnet_clean": _audit_run("resnet", INTEG_RESNET_STEPS,
+                                         cost=True)}
+    record["resnet"] = audits["resnet_clean"].pop("cost")
+    record["audits"] = {k: {f: v[f] for f in ("record", "divergences",
+                                              "graphs", "num_update")}
+                        for k, v in audits.items()}
+    record["audit_step_ms"] = {
+        k: statistics.median(v["step_ms"][2:]) if len(v["step_ms"]) > 2
+        else None for k, v in audits.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        fits = {"clean": _integrity_fit(None, None),
+                "flip": _integrity_fit(
+                    os.path.join(tmp, "flip"),
+                    "bitflip@step=%d:rank=0" % INTEG_FIT_FLIP)}
+    record["fit"] = fits
+    record["fit_bitwise"] = fits["clean"]["digest"] == fits["flip"]["digest"]
+    launches = launch_counts()
+    record["launches"] = launches
+    record["phase_s"] = time.perf_counter() - t_phase
+    _emit(record)
+    for cell in ("gpt2", "resnet"):
+        c = record[cell]
+        print("integrity %s (%s): check %.3f ms over %d words, a step "
+              "replay %.2f ms, %.4f%% of a step at period 100 (budget %g%%)"
+              % (cell, card, c["check_ms"], c["state_words"],
+                 c["replay_ms"], 100 * c["overhead_at_100"],
+                 100 * INTEG_BUDGET), flush=True)
+    print("integrity (%s): fp bitwise off %s; steps %s ms; audit steps %s "
+          "ms; phase %.1f s" % (card, record["fp_bitwise_off"],
+                                record["step_ms"], record["audit_step_ms"],
+                                record["phase_s"]), flush=True)
+    flip = audits["gpt2_flip"]["record"] or {}
+    bad = []
+    if not record["fp_bitwise_off"]:
+        bad.append("fp is not bitwise off")
+    if record["device_vs_host"]["global"][0] != \
+            record["device_vs_host"]["global"][1] \
+            or not record["device_vs_host"]["leaves_equal"]:
+        bad.append("device fingerprint != host fingerprint")
+    if record["checks"] != {"captures": 1, "replays": INTEG_STEPS - 1}:
+        bad.append("check graphs %s" % record["checks"])
+    for k in ("gpt2_clean", "resnet_clean"):
+        if audits[k]["record"] is not None or audits[k]["divergences"]:
+            bad.append("%s: a false alarm %s" % (k, audits[k]["record"]))
+    if flip.get("step") != INTEG_FLIP_STEP or flip.get("mode") != "audit":
+        bad.append("the flip was detected as %s" % flip)
+    if not (record["fit_bitwise"] and fits["flip"]["divergences"] == 1
+            and fits["flip"]["rollbacks"] == 1
+            and fits["clean"]["divergences"] == 0):
+        bad.append("fit rollback %s" % fits)
+    if not (launches[K1_SOURCES[torch.bfloat16]]
+            and launches[B2_SOURCES[torch.bfloat16]]):
+        bad.append("K1/B2 bf16 not launched: %s" % launches)
+    if bad:
+        raise AssertionError("integrity: %s" % bad)
+    return launches, record
+
+
+def _vote_trainer(zero, arg):
+    """GPT-2 small's fused bfloat16 Trainer over the mesh of every rank,
+    VOTE_ROWS rows a rank, voting every VOTE_PERIOD updates."""
+    symbol = mt.models.transformer.get_symbol(**GPT2_SMALL)
+    t = GPT2_SMALL["seq_len"]
+    tr = mt.parallel.Trainer(
+        symbol, mt.optimizer.create("adam", learning_rate=TRAIN_LR,
+                                    rescale_grad=1.0 / VOTE_ROWS),
+        mesh=mt.parallel.data_parallel_mesh(), compute_dtype="bfloat16",
+        zero=zero, integrity="vote", integrity_period=VOTE_PERIOD)
+    tr.bind(data_shapes={"data": (VOTE_ROWS, t)},
+            label_shapes={"softmax_label": (VOTE_ROWS, t)})
+    tr.init_params(arg_params=arg)
+    return tr
+
+
+def _vote_run(tr, batches):
+    try:
+        for x, y in batches:
+            tr.step({"data": x, "softmax_label": y})
+    except mt.integrity.IntegrityError as e:
+        return json.loads(json.dumps(e.record))
+    return None
+
+
+def _dist_integrity_vote(out):
+    """The vote over the ranks of the launch: GPT-2 small in bfloat16,
+    bitflip on rank 1 after update VOTE_FLIP, at zero 0 and 1.  Two
+    ranks: detection with the blame undetermined, then the replay from
+    the start resolves it to rank 1 and ends bitwise a run without the
+    fault; more ranks: the majority blames at detection."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    _card_flags()
+    rank, n = coll._process_index(), coll._process_count()
+    rng = np.random.default_rng(SEED + 11)
+    x, y = cyclic_tokens(VOTE_ROWS * n * VOTE_STEPS, rng, np.int32)
+    per = VOTE_ROWS
+    batches = [(x[(s * n + rank) * per:(s * n + rank + 1) * per],
+                y[(s * n + rank) * per:(s * n + rank + 1) * per])
+               for s in range(VOTE_STEPS)]
+    res = {"backend": coll.backend()}
+    symbol = mt.models.transformer.get_symbol(**GPT2_SMALL)
+    t = GPT2_SMALL["seq_len"]
+    shapes, _, _ = symbol.infer_shape(data=(per, t), softmax_label=(per, t))
+    arg = _random_params(symbol, shapes, np.random.default_rng(SEED))
+    reset_launch_counts()
+    # the runs without the fault: at two ranks zero=1 steps bitwise
+    # zero=0, so one serves both; at more, NCCL sums in other orders
+    cleans = {}
+    for zero in (0,) if n <= 2 else (0, 1):
+        clean = _vote_trainer(zero, arg)
+        _vote_run(clean, batches)
+        cleans[zero] = _digest(clean.params)
+        del clean
+    for zero in (0, 1):
+        tr = _vote_trainer(zero, arg)
+        blamed = []
+        tr.on_integrity_blame = blamed.append
+        start = tr.get_opt_states()
+        mt.faults.configure("bitflip@step=%d:rank=1" % VOTE_FLIP)
+        t0 = time.perf_counter()
+        rec = _vote_run(tr, batches)
+        mt.faults.clear()
+        detect_s = time.perf_counter() - t0
+        tr.set_params(arg)
+        tr.set_opt_states(start)
+        replay = _vote_run(tr, batches)
+        res["z%d" % zero] = {
+            "record": {k: v for k, v in (rec or {}).items() if k != "fps"},
+            "replay_record": replay, "blamed": [b["blamed"]
+                                                for b in blamed],
+            "bitwise_clean": _digest(tr.params) == cleans.get(zero,
+                                                               cleans[0]),
+            "check_captures": tr.check_captures,
+            "graph_captures": tr.graph_captures,
+            "detect_s": detect_s, "comm_s": tr.comm_s}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        coll.barrier()
+    res["launches"] = launch_counts()
+    return res
+
+
+DIST_CASES["integrity_vote"] = _dist_integrity_vote
+
+
+def integrity_vote(card):
+    """``vote`` over two gloo ranks sharing the card (``tools/launch.py
+    -n 2``): at zero 0 and 1, the flip on rank 1 raises on both ranks at
+    the next check with the blame undetermined, the replay blames rank 1
+    and ends bitwise a run without the fault.  Where the machine has two
+    cards or more, the same over NCCL, a rank a card, where the check is
+    captured and (three ranks or more) the majority blames at once."""
+    _phase("integrity_vote")
+    # both ranks see one card, so they share it over gloo on any machine
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    ranks, wall = run_workers(2, "integrity_vote",
+                              env={"CUDA_VISIBLE_DEVICES": first})
+    record = {"integrity_vote": "gpt2-small bf16, %d rows a rank, two gloo "
+              "ranks on one card" % VOTE_ROWS, "ranks": ranks,
+              "wall_s": wall, "card": card}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        record["across_cards"], record["across_cards_wall_s"] = run_workers(
+            min(n, 4), "integrity_vote")
+    else:
+        print("integrity_vote: NCCL across cards did not run (%d card on "
+              "this machine; it waits for a machine with two or more)" % n,
+              flush=True)
+    _emit(record)
+    bad = []
+    for r in ranks:
+        for z in ("z0", "z1"):
+            run = r[z]
+            rec = run["record"]
+            if not (rec.get("step") == VOTE_FLIP + 1
+                    and rec.get("blamed") is None
+                    and run["replay_record"] is None
+                    and run["blamed"] == [[1]] and run["bitwise_clean"]):
+                bad.append((r["rank"], z, run))
+    for r in record.get("across_cards", []):
+        m = len(record["across_cards"])
+        for z in ("z0", "z1"):
+            run = r[z]
+            want = [1] if m >= 3 else None
+            if not (run["record"].get("blamed") == want
+                    and run["check_captures"] == 1 and run["bitwise_clean"]):
+                bad.append((r["rank"], z, "across cards", run))
+    print("integrity_vote (%s): %s" % (card, {
+        z: {k: ranks[0][z][k] for k in ("record", "blamed", "bitwise_clean",
+                                         "detect_s")} for z in ("z0", "z1")}),
+        flush=True)
+    if bad or [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError("integrity_vote: %s" % bad)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    return launches, record
+
+
+def elastic_shrink(card):
+    """``tools/launch.py --local-elastic 2`` runs
+    ``tests/torch_elastic_train.py --model gpt2`` on the card with
+    ELASTIC_FAULT: rank 1 dies before its step barrier, the survivor
+    publishes the shrink (2 -> 1), the launcher relaunches one worker,
+    which resumes from the newest checkpoint; ELASTIC_RECOVERY_S is the
+    launcher's, and the final parameters must be bitwise a one-process
+    ``--replay`` from the same checkpoint epoch."""
+    _phase("elastic_shrink")
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mxtpu-elastic-")
+    env = dict(os.environ, MXTPU_FAULTS=ELASTIC_FAULT)
+    for k in ("MXTPU_COORDINATOR", "MXTPU_ELASTIC_DIR",
+              "MXTPU_HEARTBEAT_DIR", "MXTPU_MODULE_FUSED"):
+        env.pop(k, None)
+    drill = [sys.executable, os.path.join(ROOT, "tests",
+                                          "torch_elastic_train.py"),
+             work, "--model", "gpt2"]
+
+    def run(cmd, env):
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=ELASTIC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError("elastic_shrink: %s ran past %d s"
+                                 % (cmd[1], ELASTIC_TIMEOUT_S))
+        return proc.returncode, text
+
+    try:
+        code, text = run([sys.executable, os.path.join(
+            ROOT, "tools", "launch.py"), "--local-elastic", "2", "--"]
+            + drill, env)
+        elastic_s = time.perf_counter() - t0
+        lines = [ln for ln in text.splitlines()
+                 if any(k in ln for k in (
+                     "membership", "shrinking", "auto-resume",
+                     "ELASTIC_RECOVERY_S", "elastic train done",
+                     "elastic job", "Error", "error"))]
+        for ln in lines:
+            print("elastic_shrink | %s" % ln, flush=True)
+        recovery = [float(ln.split("=", 1)[1]) for ln in text.splitlines()
+                    if ln.startswith("ELASTIC_RECOVERY_S=")]
+        if code != 0:
+            raise AssertionError("elastic_shrink: the launcher exited %d:\n%s"
+                                 % (code, text[-4000:]))
+        with open(os.path.join(work, "resume-info.json")) as f:
+            info = json.load(f)
+        env.pop("MXTPU_FAULTS")
+        t1 = time.perf_counter()
+        code, rtext = run(drill + ["--replay", str(info["resumed_epoch"])],
+                          env)
+        replay_s = time.perf_counter() - t1
+        if code != 0:
+            raise AssertionError("elastic_shrink: the replay exited %d:\n%s"
+                                 % (code, rtext[-4000:]))
+        finals = {}
+        for tag in ("final", "replay-final"):
+            with open(os.path.join(work, tag + ".json")) as f:
+                finals[tag] = json.load(f)
+        procs = {}
+        for name in sorted(os.listdir(work)):
+            if name.startswith("record-"):
+                with open(os.path.join(work, name)) as f:
+                    procs[name[len("record-"):-len(".json")]] = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = {"rtc": 0}
+    for tag, rec in procs.items():
+        if "replay" not in tag:
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+    record = {"elastic_shrink": "gpt2-small bf16, %s" % ELASTIC_FAULT,
+              "shrunk": "shrinking 2 -> 1" in text,
+              "dead_rank_1": "dead=[1]; shrinking 2 -> 1" in text,
+              "resumed": info, "ELASTIC_RECOVERY_S": recovery,
+              "bitwise_replay": finals["final"] == finals["replay-final"],
+              "launches_by_process": {k: v["launches"]
+                                      for k, v in procs.items()},
+              "max_stall_s": {k: v["max_stall_s"] for k, v in procs.items()},
+              "elastic_s": elastic_s,
+              "replay_s": replay_s, "phase_s": time.perf_counter() - t0,
+              "card": card}
+    _emit(record)
+    print("elastic_shrink (%s): shrunk %s, resumed from epoch %s at world "
+          "%s, ELASTIC_RECOVERY_S %s, bitwise the replay %s; the drill "
+          "%.1f s, the replay %.1f s; longest interpreter-lock stalls %s"
+          % (card, record["shrunk"], info["resumed_epoch"], info["world"],
+             recovery, record["bitwise_replay"], elastic_s, replay_s,
+             record["max_stall_s"]),
+          flush=True)
+    if not (record["shrunk"] and record["dead_rank_1"]
+            and info["world"] == 1 and recovery and record["bitwise_replay"]
+            and "auto-resume from checkpoint epoch" in text):
+        raise AssertionError("elastic_shrink: %s" % record)
+    return total, record
+
+
 def _kernel_line(name, source, replaces, rec, paths, main_path, err, card,
                  dtype, trains=None):
     """A kernel's record.  ``launches`` is what its wrapper counted on the
@@ -6645,6 +7162,14 @@ def main():
     dist_across_cards(card)
     paths["multi_context"], _ = multi_context(card)
     paths["remat"], _ = remat(card)
+    # the silent-data-corruption defence and elastic membership: GPT-2
+    # small in bfloat16 through K1-bf16 and B2-bf16 under a check, an
+    # audit, a vote over two ranks and a shrink from two ranks to one
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["integrity"], _ = integrity(card)
+    paths["integrity_vote"], _ = integrity_vote(card)
+    paths["elastic_shrink"], _ = elastic_shrink(card)
     records = times(latencies)
     gelu = rtc_times()
     # the paths that replay a captured graph: what one replay launched (a
@@ -6676,6 +7201,7 @@ def main():
                        "float32")
     rtc.update(name="rtc_cuda", body=gelu["body"], shape=gelu["shape"],
                nvrtc=compile_record)
+    _emit({"chip_smoke_s": time.perf_counter() - _T0, "card": card})
     _emit({"kernels": lines + [rtc]})
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,11 @@ and augmented there (``DeviceUploadIter``, ``StreamAugmentIter``,
 ``tools/launch.py`` (``MXTPU_COORDINATOR``, ``MXTPU_NUM_PROCESSES``,
 ``MXTPU_PROCESS_ID``) the import joins a ``torch.distributed`` group and
 ``fit`` with a ``dist_sync`` store trains data-parallel over the worker
-processes.
+processes, elastic (``mx.elastic``: a dead rank shrinks the world, which
+``tools/launch.py --local-elastic`` relaunches and which resumes from its
+checkpoints) and guarded against silent corruption (``mx.integrity``:
+state fingerprints, replica votes, replay audits and rollback to the
+newest verified checkpoint).
 """
 from . import base
 from .base import Context, MXNetError, cpu, gpu, current_context
@@ -68,6 +72,9 @@ from . import convert
 from . import rtc
 from . import envknobs
 from . import health
+from . import integrity
+from .integrity import IntegrityError  # noqa: F401
+from . import elastic
 from . import executor_manager
 from .executor_manager import DataParallelExecutorGroup  # noqa: F401
 

@@ -85,6 +85,10 @@ KNOBS: Dict[str, _Knob] = dict((
        "clean steps before the dynamic loss scale doubles"),
     _k("MXTPU_INTEGRITY_MODE", "str", "off", "trainer",
        "state-integrity mode: off|fp|vote|audit"),
+    _k("MXTPU_INTEGRITY_PERIOD", "int", 100, "trainer",
+       "updates between integrity checks"),
+    _k("MXTPU_INTEGRITY_MAX_ROLLBACKS", "int", 3, "module",
+       "consecutive integrity rollbacks before fit raises"),
     _k("MXTPU_TUNE_PLAN", "str", None, "tuneplan",
        "path to a persisted TUNE_PLAN.json applied at Trainer/"
        "ModelServer construction (env and ctor args override it)"),
@@ -137,6 +141,22 @@ KNOBS: Dict[str, _Knob] = dict((
        "shared heartbeat dir"),
     _k("MXTPU_HEARTBEAT_TRANSPORT", "str", "dir", "health",
        "dir|kv heartbeat transport"),
+    _k("MXTPU_ELASTIC", "bool", False, "elastic",
+       "elastic worker flag (set by tools/launch.py --local-elastic)"),
+    _k("MXTPU_ELASTIC_DIR", "str", None, "elastic",
+       "shared membership dir"),
+    _k("MXTPU_ELASTIC_CHECK_S", "float", None, "elastic",
+       "monitor scan period"),
+    _k("MXTPU_ELASTIC_HB_TIMEOUT_S", "float", None, "elastic",
+       "liveness timeout"),
+    _k("MXTPU_ELASTIC_JOIN_GRACE_S", "float", None, "elastic",
+       "never-stamped rank grace"),
+    _k("MXTPU_ELASTIC_STEP_TIMEOUT_S", "float", None, "elastic",
+       "collective-entry guard wait"),
+    _k("MXTPU_COMM_PARITY", "bool", True, "elastic",
+       "cross-rank comm-plan digest check"),
+    _k("MXTPU_COMM_PARITY_TIMEOUT_S", "float", None, "elastic",
+       "bounded wait for peer plan stamps"),
     _k("MXTPU_INIT_ATTEMPTS", "int", None, "distributed",
        "jax.distributed.initialize retries"),
     _k("MXTPU_INIT_TIMEOUT_S", "float", None, "distributed",

@@ -63,12 +63,36 @@ Those of training and its persistence:
   :class:`InjectedCrash`; either way the ``.tmp`` stays behind and the
   previous version stays visible.
 
-The grammar, the condition keys and the site words are the JAX
-package's (``mxnet_tpu/faults.py``), so one spec parses to the same
-directives in both packages; the JAX package's other sites (``nan_grad``
-in the Trainer's step, ``host_dead``, ``hb_stall``, ``bitflip``) have
-no counterpart in the port yet, and their directives parse but never
-fire.
+And those of the fused trainer, the heartbeats and elastic
+membership:
+
+* ``nan_grad`` — :meth:`Trainer.step <mxnet_tpu_torch.parallel.trainer.
+  Trainer.step>` poisons the first floating input with NaN (``step=`` is
+  the 1-based update counter), so the sentinel's skip or abort runs.
+* ``host_dead`` — the elastic guard (``elastic.ElasticCoordinator.
+  guard``, before the step barrier's stamp), and ``Trainer.step`` for a
+  run without a coordinator (before the step's collectives): the
+  targeted rank dies as SIGKILL would (``os._exit(137)``).  ``step=`` is
+  the update counter, ``rank=`` matches exactly.  Drives the membership
+  shrink and the resume.
+* ``hb_stall`` — ``health.Heartbeat``'s thread (``site=hb_stamp``,
+  ``beat=``, ``rank=`` exact) freezes without the process dying: the
+  split brain, where peers declare the rank dead and it must see its
+  own revocation.
+* ``bitflip`` — ``Trainer.step`` after the update (``step=``, ``rank=``
+  the exact rank on the data axis): one bit of a float32 state leaf
+  flipped on that rank's copy, a quiet corruption the sentinel cannot
+  see, which drives the integrity vote, audit and rollback.  Payload
+  keys, carried to the site and never matched: ``leaf=GLOB`` (a state
+  path, ``arg/fc1_weight``, ``opt/fc1_weight[0]`` or the bare name;
+  only ``*``/``?`` are wildcards, and ``/`` spells the namespace colon,
+  since ``:`` separates conditions; default ``*``, the first leaf) and
+  ``bit=B`` (default 12, in the mantissa).
+
+The grammar, the condition keys, the site words and the sites are the
+JAX package's (``mxnet_tpu/faults.py``), so one spec parses to the same
+directives and fires at the same places in both packages, each
+directive once per process for each of its ``count``.
 
 Condition keys are CHECKED at parse time against the registry of keys
 the injection sites actually report (`_KNOWN_KEYS`): a typo like

@@ -9,8 +9,11 @@ ahead of its step (:class:`~mxnet_tpu_torch.io.DeviceUploadIter`), as the
 JAX package's does.  ``fit`` takes a ``monitor``, and checkpoints with
 resume (``checkpoint``, ``checkpoint_period``, ``resume``; see
 ``resilience.py``); each batch fetch is retried on a transient
-``OSError``.  ``elastic`` and the integrity rollback wait for the port's
-distribution slice.
+``OSError``.  ``elastic`` (an
+:class:`~mxnet_tpu_torch.elastic.ElasticCoordinator`) guards every batch
+with the step barrier, and an
+:class:`~mxnet_tpu_torch.integrity.IntegrityError` of the fused step rolls
+the run back to the newest verified checkpoint, as in the JAX package.
 
 At an epoch's end ``fit`` copies the trained values to the host and
 writes them back (``set_params``), as the JAX package's does; the
@@ -20,6 +23,7 @@ re-creates it (ROADMAP §C).
 from __future__ import annotations
 
 import logging
+import os
 import time
 from collections import namedtuple
 
@@ -28,9 +32,6 @@ from .. import ndarray
 from .. import obs as _obs
 from ..base import MXNetError
 from ..ndarray import NDArray
-
-ELASTIC_SLICE = ("fit(elastic=...) waits for the port's elastic.py and "
-                 "health.py (ROADMAP queue A, item 5)")
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -169,10 +170,20 @@ class BaseModule(object):
         newest intact checkpoint and, with a deterministic iterator,
         reproduces the uninterrupted run bit for bit.  ``monitor`` (a
         :class:`~mxnet_tpu_torch.monitor.Monitor`) is installed after the
-        bind and ticks around each step."""
+        bind and ticks around each step.
+
+        ``elastic`` (an :class:`~mxnet_tpu_torch.elastic.ElasticCoordinator`)
+        runs its guard before every batch: a dead peer raises
+        :class:`~mxnet_tpu_torch.elastic.ElasticShrink` at the next batch
+        boundary instead of hanging the step's collectives; the caller
+        exits with ``elastic.SHRINK_EXIT_CODE`` and the launcher starts
+        the shrunk world, which resumes through ``checkpoint``/``resume``.
+        An :class:`~mxnet_tpu_torch.integrity.IntegrityError` of the fused
+        step rolls back to the newest checkpoint that re-hashes to its
+        manifest's fingerprint and trains on from there, at most
+        ``MXTPU_INTEGRITY_MAX_ROLLBACKS`` (3) times without progress; a
+        blamed replica is quarantined through ``elastic``."""
         assert num_epoch is not None, "please specify number of epochs"
-        if elastic is not None:
-            raise MXNetError(ELASTIC_SLICE)
         if initializer is None:
             from ..initializer import Uniform
             initializer = Uniform(0.01)
@@ -213,15 +224,110 @@ class BaseModule(object):
         # the fused path: stage batch N+1's upload while step N computes
         staged = self._maybe_overlap_uploads(train_data)
         wrapped = staged is not train_data
+        from .. import envknobs
+        max_rollbacks = envknobs.get_int("MXTPU_INTEGRITY_MAX_ROLLBACKS", 3)
+        self._wire_blame(elastic)
+        if elastic is not None and \
+                os.environ.get("MXTPU_COMM_PARITY", "1") != "0":
+            # the port traces no comm plan yet (ROADMAP item 10): the
+            # sentinel digest, so the peers' parity check logs the pair
+            # as unverified instead of waiting on a missing stamp
+            from ..elastic import COMM_PLAN_UNTRACED
+            try:
+                elastic.publish_comm_plan([], digest=COMM_PLAN_UNTRACED)
+            except Exception as e:                  # noqa: BLE001
+                self.logger.warning("comm-plan stamp not published: %s", e)
         try:
             self._fit_epochs(staged, eval_data, eval_metric,
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch, num_epoch,
-                             monitor, ckpt_mgr, checkpoint_period)
+                             monitor, ckpt_mgr, checkpoint_period, elastic,
+                             max_rollbacks)
         finally:
             if wrapped:
                 staged._shutdown_worker()
+
+    def _wire_blame(self, elastic):
+        """The fused trainer's blame callback for this fit: quarantine the
+        blamed replica through ``elastic`` (blame can resolve after the
+        rollback, when the replay's agreeing check exonerates the honest
+        replica).  Rewired on every fit, whose coordinator may differ; a
+        callback the user installed stays."""
+        trainer = getattr(self, "_trainer", None)
+        if trainer is None or not (
+                trainer.on_integrity_blame is None
+                or getattr(trainer.on_integrity_blame, "_fit_wired", False)):
+            return
+        if elastic is None:
+            trainer.on_integrity_blame = None
+            return
+
+        def _blame_cb(record, _elastic=elastic):
+            self._quarantine_blamed(record, _elastic)
+        _blame_cb._fit_wired = True
+        trainer.on_integrity_blame = _blame_cb
+
+    def _quarantine_blamed(self, record, elastic):
+        """Shrink every blamed replica's process out of the elastic
+        membership: the outvoted rank is alive and heartbeating, and
+        policy, not a lapsed heartbeat, removes it.  A rank of the port's
+        data mesh is one process, so a replica's index is its rank."""
+        for rank in sorted({int(r) for r in record.get("blamed") or []}):
+            try:
+                elastic.quarantine(rank)
+            except Exception as e:                  # noqa: BLE001
+                self.logger.warning(
+                    "integrity: quarantine of blamed rank %s failed: %s",
+                    rank, e)
+
+    def _integrity_rollback(self, err, ckpt_mgr, elastic, rollbacks,
+                            max_rollbacks):
+        """One round of the rollback to the newest verified checkpoint;
+        returns the epoch the fit loop enters again.  Raises MXNetError
+        when nothing trustworthy is left to restore or the cap of
+        consecutive divergences is reached."""
+        record = getattr(err, "record", None) or {}
+        if rollbacks > max_rollbacks:
+            raise MXNetError(
+                "integrity: %d consecutive divergences without verified "
+                "progress (MXTPU_INTEGRITY_MAX_ROLLBACKS=%d) — the "
+                "corruption recurs faster than checkpoints verify; "
+                "refusing to rollback-loop. Last divergence: %s"
+                % (rollbacks, max_rollbacks, err)) from err
+        cb = getattr(getattr(self, "_trainer", None),
+                     "on_integrity_blame", None)
+        if elastic is not None and record.get("blamed") and \
+                not getattr(cb, "_fit_wired", False):
+            # the fit-wired callback already quarantined a record whose
+            # blame the trainer resolved at detection
+            self._quarantine_blamed(record, elastic)
+        if ckpt_mgr is None:
+            raise MXNetError(
+                "integrity divergence at update %s but fit() has no "
+                "checkpoint line to roll back to — pass "
+                "checkpoint=<prefix> to enable recovery: %s"
+                % (record.get("step"), err)) from err
+        ck = ckpt_mgr.latest_verified()
+        if ck is None:
+            raise MXNetError(
+                "integrity divergence at update %s and NO checkpoint "
+                "re-hashes to its manifest fingerprint — the corruption "
+                "predates the whole retained checkpoint line: %s"
+                % (record.get("step"), err)) from err
+        self.logger.warning(
+            "integrity: divergence at update %s (mode=%s, blamed=%s) — "
+            "rolling back to verified checkpoint epoch %d (step %s) and "
+            "re-stepping [rollback %d/%d]",
+            record.get("step"), record.get("mode"), record.get("blamed"),
+            ck.epoch, ck.step, rollbacks, max_rollbacks)
+        _obs.counter("integrity.rollbacks").inc()
+        _, arg_params, aux_params = ck.load_params()
+        self.set_params(arg_params, aux_params)
+        if ck.states_path and getattr(self, "optimizer_initialized",
+                                      False):
+            self.load_optimizer_states(ck.states_path)
+        return ck.epoch
 
     def _maybe_overlap_uploads(self, train_data):
         """``train_data`` wrapped in a
@@ -250,10 +356,23 @@ class BaseModule(object):
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback, batch_end_callback,
                     eval_end_callback, eval_batch_end_callback, begin_epoch,
-                    num_epoch, monitor, ckpt_mgr, checkpoint_period):
-        for epoch in range(begin_epoch, num_epoch):
-            elapsed = self._train_epoch(epoch, train_data, eval_metric,
-                                        batch_end_callback, monitor)
+                    num_epoch, monitor, ckpt_mgr, checkpoint_period,
+                    elastic=None, max_rollbacks=3):
+        from ..integrity import IntegrityError
+        rollbacks = 0
+        epoch = begin_epoch
+        while epoch < num_epoch:
+            try:
+                elapsed = self._train_epoch(epoch, train_data, eval_metric,
+                                            batch_end_callback, monitor,
+                                            elastic)
+            except IntegrityError as err:
+                rollbacks += 1
+                epoch = self._integrity_rollback(
+                    err, ckpt_mgr, elastic, rollbacks, max_rollbacks)
+                train_data.reset()
+                continue
+            rollbacks = 0           # verified forward progress
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch, elapsed)
@@ -285,18 +404,23 @@ class BaseModule(object):
                     self.logger.info("Epoch[%d] Validation-%s=%f",
                                      epoch, name, val)
             train_data.reset()
+            epoch += 1
 
     def _train_epoch(self, epoch, train_data, eval_metric,
-                     batch_end_callback, monitor=None):
+                     batch_end_callback, monitor=None, elastic=None):
         """One pass over ``train_data``; returns the wall time
         (reference ``base_module.py:475``).  Each fetch rides
         :func:`~mxnet_tpu_torch.resilience.retry_io`: a transient
         ``OSError`` of the input pipeline (an injected ``io_error``
-        too) is retried with backoff; a persistent one propagates."""
+        too) is retried with backoff; a persistent one propagates.  With
+        ``elastic`` the coordinator's guard runs before every step: no
+        rank enters the step until every member has committed to it, and
+        a lapsed member surfaces here as ``ElasticShrink``."""
         from ..resilience import retry_io
         eval_metric.reset()
         tic = time.time()
         data_iter = iter(train_data)
+        trainer = getattr(self, "_trainer", None)
         nbatch = 0
         while True:
             try:
@@ -305,6 +429,9 @@ class BaseModule(object):
                                       logger=self.logger)
             except StopIteration:
                 break
+            if elastic is not None:
+                elastic.guard(trainer.num_update + 1
+                              if trainer is not None else None)
             if monitor is not None:
                 monitor.tic()
             self.forward_backward(data_batch)

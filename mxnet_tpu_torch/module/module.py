@@ -666,6 +666,23 @@ class Module(BaseModule):
             return self._trainer.sentinel_skips
         return 0
 
+    def state_fingerprint(self):
+        """The training state's integrity record for a checkpoint's
+        manifest (``integrity.py``).  The fused path: the fingerprint
+        the device computes over the params, aux states and optimizer
+        state.  The classic path: a host hash of the parameter copies
+        (``arg:``/``aux:`` only), as in the JAX package."""
+        if self._trainer is not None:
+            return self._trainer.state_fingerprint()
+        from .. import integrity
+        assert self.binded and self.params_initialized
+        arg_params, aux_params = self.get_params()
+        named = integrity.named_state_leaves(
+            {n: v.asnumpy() for n, v in arg_params.items()},
+            {n: v.asnumpy() for n, v in aux_params.items()})
+        global_fp, leaves = integrity.host_fingerprint(named)
+        return integrity.manifest_record(global_fp, leaves, mode="host")
+
     def save_optimizer_states(self, fname):
         """The optimizer state: the fused Trainer's blob, or on the
         classic path the updater's states with the device generator's

@@ -56,10 +56,27 @@ same masks; a ``zero=1`` blob holds whole leaves, so it restores across
 shape, one state).  Aux states (BatchNorm's moving statistics) are
 float32 masters, cast to the compute dtype for the forward like the
 params, and the step writes their new values into them in place.
-Tensor-parallel ``param_specs``, ``integrity``, tune
-plans (``plan=``), the persisted program cache and the static analyses
-wait for later slices of the port, and each raises :class:`MXNetError`
-naming its slice.
+
+The silent-data-corruption defence (``integrity``, ``integrity_period``;
+``MXTPU_INTEGRITY_MODE``, ``MXTPU_INTEGRITY_PERIOD``), as the JAX
+package's: every ``integrity_period``-th update runs a check.  ``fp``
+and ``vote`` fingerprint the state the update reads (params, aux states
+and optimizer state, ``integrity.py``) in a program of its own before
+the step: on the card a second CUDA graph in the step graph's memory
+pool, so every other step replays exactly the graph an unarmed trainer
+replays.  ``vote`` gathers every rank's per-leaf fingerprints (inside
+that graph over NCCL, through the host over gloo) and compares the
+replicated leaves (ZeRO-1 shards sit out); a strict minority is blamed
+at once, a one-against-one split when the rollback replay reaches the
+step again.  ``audit`` (and ``vote`` without a data mesh of two or more
+ranks) snapshots what the step reads, replays the step from it and
+compares the two states' fingerprints.  A divergence raises
+:class:`~mxnet_tpu_torch.integrity.IntegrityError`; ``Module.fit`` rolls
+back to the newest verified checkpoint.  :meth:`Trainer.state_fingerprint`
+is what a checkpoint's manifest records.  Tensor-parallel
+``param_specs``, tune plans (``plan=``), the persisted program cache and
+the static analyses wait for later slices of the port, and each raises
+:class:`MXNetError` naming its slice.
 """
 from __future__ import annotations
 
@@ -75,6 +92,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import faults as _faults
+from .. import integrity as _integrity
+from .. import obs as _obs
 from .. import random as _random
 from ..base import MXNetError, _dtype, current_context
 from ..executor import _GraphProgram
@@ -375,16 +395,37 @@ class Trainer:
         self._in_step = False
         self._zero_dims = {}
         self.comm_s = 0.0
+        # --- silent-data-corruption defence: a state fingerprint every
+        # `integrity_period` updates, a vote over the data mesh's ranks
+        # or a replay audit; a divergence raises IntegrityError and
+        # Module.fit rolls back to the newest verified checkpoint
         if integrity is None:
             integrity = os.environ.get("MXTPU_INTEGRITY_MODE", "off")
         if integrity not in ("off", "fp", "vote", "audit"):
             raise MXNetError("unknown integrity mode %r (off|fp|vote|"
                              "audit)" % (integrity,))
-        if integrity != "off" or integrity_period is not None:
-            raise MXNetError("integrity=%r, integrity_period=%r: the state "
-                             "fingerprints, votes and audits wait for the "
-                             "port's resilience slice"
-                             % (integrity, integrity_period))
+        self.integrity = integrity
+        integrity_period = _knob(integrity_period, "MXTPU_INTEGRITY_PERIOD",
+                                 "100")
+        self.integrity_period = _as_int(
+            integrity_period, "integrity_period (MXTPU_INTEGRITY_PERIOD)")
+        if self.integrity != "off" and self.integrity_period < 1:
+            raise MXNetError("integrity_period=%r: need >= 1"
+                             % (integrity_period,))
+        self._integ_mode = "off"       # resolved at _build
+        self._integ = None             # the check's carry (fp/vote)
+        self._integ_paths = None       # state-leaf paths, vote column order
+        self._integ_rep_mask = None    # which columns vote (replicated)
+        self._integ_rep_idx = None     # the same, as a device index
+        self._integ_external = False   # ZeRO-1 vote: raises before the step
+        self._check = None             # the check's CUDA graph
+        self._check_warm = False
+        self.check_captures = 0
+        self.check_replays = 0
+        self.integrity_divergences = 0
+        self.integrity_blamed = []     # resolved blame records
+        self._integrity_pending = None  # divergence awaiting replay blame
+        self.on_integrity_blame = None  # callback(record) on resolution
         input_set = set(self.data_names) | set(self.label_names)
         self.param_names = [n for n in self.prog.arg_names
                             if n not in input_set]
@@ -533,6 +574,7 @@ class Trainer:
             # once per trainer, not per (re-)init: the skip counters and
             # the effective update cursor survive a parameter refresh
             self._sent = self._init_sentinel(self.num_update)
+        self._integ_setup()
         return self
 
     def _assign(self, old, new):
@@ -546,6 +588,7 @@ class Trainer:
         if not same:
             self._graphs.clear()
             self._warm.clear()
+            self._check, self._check_warm = None, False
             return new
         _tree_map(lambda a, b: a.copy_(b), old, new)
         return old
@@ -729,6 +772,8 @@ class Trainer:
         _, self._update_fn = make_update_fn(self.optimizer, self.param_names)
         self._graphs.clear()
         self._warm.clear()
+        self._check, self._check_warm = None, False
+        self._resolve_integrity()
 
     def _forward(self, params, aux_vals, batch, is_train, rng=None):
         """The graph over ``params`` and ``batch``, in the compute dtype:
@@ -1030,20 +1075,40 @@ class Trainer:
                 lr = self.optimizer.lr_scheduler(self.num_update)
             else:
                 lr = self.optimizer.lr
+        # whole-host death, SIGKILL-faithful, before this rank's step
+        # enters its collectives (an elastic run meets the same directive
+        # one layer up, in ElasticCoordinator.guard)
+        if _faults.hit("host_dead", step=self.num_update,
+                       rank=_coll._process_index()):
+            os._exit(137)
         dev_batch = self._device_batch(batch)
+        # the nan_grad fault: a poisoned batch, so the backward makes
+        # non-finite gradients and the sentinel's path runs for real
+        if _faults.hit("nan_grad", step=self.num_update):
+            dev_batch = self._poison_batch(dev_batch)
         # one write of the lr device scalar per lr CHANGE, not per step
         if self._lr_cache != lr:
             self._lr.fill_(lr)
             self._lr_cache = lr
         self._t.fill_(max(1, self.num_update))
-        if self._twin is not None:
-            self._twin.set_state(self._rng().get_state())
+        due = self._integ_mode != "off" and \
+            self.num_update % self.integrity_period == 0
+        check_now = due and self._integ_mode in ("fp", "vote")
+        audit_now = due and self._integ_mode == "audit"
         c0 = _coll.host_comm_seconds()
-        if self.device.type == "cuda" and not self._host_comm:
-            outs = self._graph_step(dev_batch)
-        else:
-            outs = self._step_core(dev_batch)
-        self.comm_s += _coll.host_comm_seconds() - c0
+        if check_now:
+            # fp/vote: the state this update reads, as the JAX package's
+            # check-step program fingerprints its incoming state
+            with _obs.span("train.integrity",
+                           attrs={"mode": self._integ_mode}):
+                self._run_check()
+                if self._integ_external:
+                    # ZeRO-1: the vote's verdict before the step, as the
+                    # JAX package's standalone vote gives it
+                    self._integrity_after_check()
+                    check_now = False
+        saved = self._audit_snapshot(dev_batch) if audit_now else None
+        outs = self._run_step(dev_batch)
         if self.donate_batch:
             self._donate(dev_batch, outs)
         if self._sent is not None and self.sentinel == "abort":
@@ -1056,7 +1121,39 @@ class Trainer:
                     "gradient steps (threshold %d) at update %d — "
                     "aborting (MXTPU_SENTINEL=abort)"
                     % (consec, self.sentinel_max_skips, self.num_update))
+        # the bitflip fault: one mantissa bit of a state leaf, on one
+        # rank's copy, AFTER the update (a corrupt write the sentinel
+        # never sees; the next integrity check has to)
+        if _faults.active("bitflip"):
+            self._apply_bitflip_faults()
+        if audit_now:
+            with _obs.span("train.integrity", attrs={"mode": "audit"}):
+                self._audit_check(saved)
+        self.comm_s += _coll.host_comm_seconds() - c0
+        if check_now:
+            self._integrity_after_check()
         return [NDArray(o) for o in outs]
+
+    def _run_step(self, dev_batch):
+        """The step on the batch: the captured graph's path on a card
+        (unless the collectives go through the host), else eager."""
+        if self._twin is not None:
+            self._twin.set_state(self._rng().get_state())
+        if self.device.type == "cuda" and not self._host_comm:
+            return self._graph_step(dev_batch)
+        return self._step_core(dev_batch)
+
+    def _poison_batch(self, dev_batch: Dict) -> Dict:
+        """The first floating input times NaN (the ``nan_grad`` fault):
+        its shape, dtype and device kept."""
+        out = dict(dev_batch)
+        for n in self.data_names + self.label_names:
+            v = out.get(n)
+            if v is not None and v.is_floating_point():
+                out[n] = v * float("nan")
+                return out
+        raise MXNetError("nan_grad fault: no floating input to poison "
+                         "among %s" % (list(dev_batch),))
 
     def _donate(self, batch, outs):
         """Give up each batch tensor the step has read (``donate_batch``):
@@ -1073,6 +1170,328 @@ class Trainer:
             if v.is_cuda:
                 v.record_stream(torch.cuda.current_stream(v.device))
             v.set_()
+
+    # ------------------------------------------------------------------
+    # the silent-data-corruption defence
+    def _resolve_integrity(self):
+        """The requested mode against this trainer's topology: ``vote``
+        needs a data mesh of two or more ranks and falls back to the
+        replay audit without one, as in the JAX package."""
+        mode = self.integrity
+        if mode == "vote" and (self._ndata <= 1 or not self._comm):
+            logging.getLogger("mxtpu.integrity").info(
+                "integrity=vote needs a >=2-way pure-data mesh; "
+                "falling back to the deterministic replay audit")
+            mode = "audit"
+        self._integ_mode = mode
+        self._integ_external = mode == "vote" and self._zero_on
+
+    def _integ_setup(self):
+        """The state-leaf paths in vote-column order, which columns vote
+        (every leaf but a ZeRO-1 shard), and the check's carry: each
+        rank's per-leaf fingerprints and the agreement flag, on the
+        device.  Made once the optimizer state exists."""
+        if self._integ_mode == "off":
+            return
+        named = self._named_state()
+        paths = [p for p, _ in named]
+        self._integ_paths = paths
+        self._integ_rep_mask = np.array(
+            [not self._is_shard(p) for p in paths], bool)
+        # the weights for the longest leaf, whole (what state_fingerprint
+        # reads under zero=1 too), before any capture
+        _integrity.reserve(self.device, max(
+            _integrity.word_count(v) * (self._ndata if self._is_shard(p)
+                                        else 1) for p, v in named))
+        self._integ_salts = torch.tensor(
+            [_integrity.path_salt(p) for p in paths], dtype=torch.int64,
+            device=self.device)
+        if self._integ is None:
+            rows = self._ndata if self._integ_mode == "vote" else 1
+            self._integ = {
+                "leaf": torch.zeros((rows, len(paths)), dtype=torch.int64,
+                                    device=self.device),
+                "agree": torch.ones((), dtype=torch.int32,
+                                    device=self.device)}
+            self._integ_rep_idx = torch.as_tensor(
+                np.where(self._integ_rep_mask)[0], dtype=torch.int64,
+                device=self.device)
+
+    def _is_shard(self, path):
+        """Whether a state leaf holds this rank's rows of a ZeRO-1 leaf
+        (its bits legitimately differ between ranks)."""
+        ns, _, rest = path.partition(":")
+        return ns == "opt" and self._zero_on and \
+            self._zero_dims.get(rest.split("[", 1)[0]) is not None
+
+    def _named_state(self, whole=False):
+        """The state's ``(path, tensor)`` leaves (``integrity``'s order):
+        the live tensors, this rank's rows of a ZeRO-1 leaf; with
+        ``whole``, the optimizer state's whole leaves (gathered: a
+        collective under zero=1)."""
+        opt_state = self._whole_state() if whole else self.opt_state
+        return _integrity.named_state_leaves(self.params, self.aux,
+                                             opt_state)
+
+    @staticmethod
+    def _leaf_fps(named):
+        """Per-leaf fingerprints of ``named``: int64, one a leaf, on the
+        device."""
+        return torch.stack([_integrity.leaf_fingerprint(v) for _, v in named])
+
+    def _fingerprints(self, named):
+        """Per-leaf fingerprints of ``named`` and their global fold."""
+        lf = self._leaf_fps(named)
+        salts = torch.tensor([_integrity.path_salt(p) for p, _ in named],
+                             dtype=torch.int64, device=lf.device)
+        return lf, _integrity.fold_fingerprints(lf, salts)
+
+    def _check_core(self):
+        """The check: this rank's per-leaf fingerprints and, under
+        ``vote``, every rank's gathered, the replicated columns
+        compared; written into the carry (no host copy: a CUDA graph
+        holds it)."""
+        lf = self._leaf_fps(self._named_state())
+        integ = self._integ
+        if self._integ_mode == "vote":
+            mat = _coll.all_gather(lf.reshape(1, -1), self._ndata)
+            integ["leaf"].copy_(mat)
+            if self._integ_rep_idx.numel():
+                sub = mat.index_select(1, self._integ_rep_idx)
+                integ["agree"].copy_((sub == sub[0:1]).all())
+            else:
+                integ["agree"].fill_(1)
+        else:
+            integ["leaf"].copy_(lf.reshape(1, -1))
+            integ["agree"].fill_(1)
+
+    def _run_check(self):
+        """The check, on a card as a CUDA graph of its own (after one
+        eager run, as a step is), in the memory pool of a step graph
+        where one is captured; eager where the collectives go through
+        the host, and on the CPU."""
+        if self.device.type != "cuda" or self._host_comm:
+            self._check_core()
+            return
+        if self._check is None:
+            if not self._check_warm:
+                self._check_core()
+                self._check_warm = True
+                return
+            graph = torch.cuda.CUDAGraph()
+            pool = next((g.pool() for g, _, _ in self._graphs.values()),
+                        None)
+            torch.cuda.synchronize(self.device)
+            try:
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    self._check_core()
+            except Exception as err:   # noqa: BLE001 - re-raised, named
+                raise MXNetError("capturing the integrity check in a CUDA "
+                                 "graph failed: %s: %s"
+                                 % (type(err).__name__, err)) from err
+            self._check = graph
+            self.check_captures += 1
+        self._check.replay()
+        self.check_replays += 1
+
+    def _integrity_after_check(self):
+        """Read the check's agreement flag.  On a disagreement: the
+        divergence record, the strict minority blamed when there is
+        one, and IntegrityError.  On an agreeing check at the step of a
+        recorded one-against-one divergence (the rollback replay): the
+        replica whose recorded row matches the honest replay is
+        exonerated, the others blamed."""
+        agree = bool(int(self._integ["agree"]))
+        pend = self._integrity_pending
+        rep = np.where(self._integ_rep_mask)[0]
+        log = logging.getLogger("mxtpu.integrity")
+        if agree:
+            if pend is not None and pend.get("mode") == "vote" \
+                    and pend.get("step") == self.num_update:
+                self._integrity_pending = None
+                mat = self._integ["leaf"].cpu().numpy()
+                fresh = [int(v) for v in mat[0][rep]]
+                rows = pend.get("fps") or []
+                exonerated = [r for r in range(len(rows))
+                              if [int(rows[r][c]) for c in rep] == fresh]
+                blamed = sorted(set(range(len(rows))) - set(exonerated)) \
+                    if exonerated else None
+                pend["blamed"] = blamed
+                if blamed:
+                    self.integrity_blamed.append(pend)
+                    log.warning(
+                        "integrity: rollback replay of update %d matches "
+                        "replica(s) %s — BLAMING replica(s) %s for the "
+                        "recorded divergence (leaves %s)", self.num_update,
+                        exonerated, blamed, pend.get("leaves"))
+                    if self.on_integrity_blame is not None:
+                        self.on_integrity_blame(pend)
+                else:
+                    log.warning(
+                        "integrity: rollback replay of update %d matches "
+                        "no recorded replica — blame indeterminate "
+                        "(corruption predated the check window)",
+                        self.num_update)
+            return
+        mat = self._integ["leaf"].cpu().numpy()
+        _, blamed, div_cols = _integrity.blame_minority(mat, rep)
+        record = {"step": int(self.num_update), "mode": "vote",
+                  "world": int(mat.shape[0]),
+                  "fps": [[int(v) for v in row] for row in mat],
+                  "leaves": [self._integ_paths[c] for c in div_cols],
+                  "blamed": blamed}
+        self.integrity_divergences += 1
+        if blamed is not None:
+            self.integrity_blamed.append(record)
+            if self.on_integrity_blame is not None:
+                self.on_integrity_blame(record)
+            self._integrity_pending = None
+        else:
+            # no strict majority (two replicas): the rollback replay of
+            # this step resolves the blame (the agreeing branch above)
+            self._integrity_pending = record
+        raise _integrity.IntegrityError(
+            "integrity vote FAILED at update %d: replicas disagree on %d "
+            "replicated state leaf/leaves %s — blamed replica(s): %s; "
+            "roll back to the last verified checkpoint and re-step"
+            % (self.num_update, len(div_cols), record["leaves"][:4],
+               blamed if blamed is not None else
+               "indeterminate (no strict majority)"), record)
+
+    def _state_tensors(self):
+        """Every tensor the step reads and writes besides its batch."""
+        return (list(self.params.values()) + list(self.aux.values())
+                + _leaves(self.opt_state)
+                + (list(self._sent.values()) if self._sent else []))
+
+    def _audit_snapshot(self, dev_batch):
+        """Copies of what the step reads: the state, the sentinel, the
+        batch (when the step gives it up) and the generator's state; the
+        ``t`` and ``lr`` scalars stay as the step set them."""
+        state = [v.clone() for v in self._state_tensors()]
+        batch = {n: v.clone() for n, v in dev_batch.items()} \
+            if self.donate_batch else dev_batch
+        rng = self._rng().get_state() if self.has_rng else None
+        return state, batch, rng
+
+    def _audit_check(self, saved):
+        """The audit: the step run again from the snapshot, the two
+        states' global fingerprints compared, the live result kept.  A
+        step is deterministic, so any difference (a flaky ALU, a corrupt
+        write, the injected ``bitflip``) is a divergence; a kernel that
+        is not bitwise repeatable would show here too."""
+        state, batch, rng = saved
+        tensors = self._state_tensors()
+        self._run_check()
+        lf_live = self._integ["leaf"][0].clone()
+        live = [v.clone() for v in tensors]
+        with torch.no_grad():
+            for v, old in zip(tensors, state):
+                v.copy_(old)
+        if rng is not None:
+            self._rng().set_state(rng)
+        self._run_step(batch)
+        self._run_check()
+        lf_replay = self._integ["leaf"][0]
+        with torch.no_grad():
+            for v, kept in zip(tensors, live):
+                v.copy_(kept)
+        fp_live = int(_integrity.fold_fingerprints(lf_live,
+                                                   self._integ_salts))
+        fp_replay = int(_integrity.fold_fingerprints(lf_replay,
+                                                     self._integ_salts))
+        if fp_live == fp_replay:
+            return
+        # the record names the leaves whose bits differ (the JAX
+        # package's audit record leaves them out)
+        differ = (lf_live != lf_replay).tolist()
+        record = {"step": int(self.num_update), "mode": "audit",
+                  "world": 1, "fps": [[fp_live], [fp_replay]],
+                  "leaves": [p for p, d in zip(self._integ_paths, differ)
+                             if d],
+                  "blamed": None}
+        self.integrity_divergences += 1
+        raise _integrity.IntegrityError(
+            "integrity audit: update %d executed twice from identical "
+            "inputs produced different state fingerprints (%08x vs "
+            "replay %08x) — silent corruption during execution; roll "
+            "back to the last verified checkpoint"
+            % (self.num_update, fp_live, fp_replay), record)
+
+    def _apply_bitflip_faults(self):
+        """Consume the armed ``bitflip`` directives: each rank of the
+        data axis is asked in turn (every process consumes the same
+        directive, once), and the process that holds the targeted
+        rank's copy flips the matched leaf, in place."""
+        for rank in range(max(1, self._ndata)):
+            payload = _faults.hit_params("bitflip", step=self.num_update,
+                                         rank=rank)
+            if payload is None:
+                continue
+            pattern = str(payload.get("leaf", "*"))
+            bit = int(payload.get("bit", 12))
+            named = self._named_state()
+            f32_paths = [p for p, v in named if v.dtype == torch.float32]
+            target = _integrity.match_leaf(pattern, f32_paths)
+            if target is None:
+                raise MXNetError(
+                    "bitflip fault: leaf glob %r matches no f32 state "
+                    "leaf (have %s%s)"
+                    % (pattern, f32_paths[:6],
+                       "..." if len(f32_paths) > 6 else ""))
+            _integrity.bitflip(dict(named)[target], rank, bit=bit,
+                               my_rank=self._rank if self._ndata > 1
+                               else None)
+            logging.getLogger("mxtpu.integrity").warning(
+                "bitflip fault fired: leaf %s bit %d rank %d at update %d",
+                target, bit, rank, self.num_update)
+
+    def _set_state_leaf(self, path: str, value) -> None:
+        """Write ``value`` into the state leaf at ``path``, in place."""
+        for p, v in self._named_state():
+            if p == path:
+                with torch.no_grad():
+                    v.copy_(value)
+                return
+        raise MXNetError("no state leaf at %r" % (path,))
+
+    def _save_vote_check(self):
+        """The ranks' agreement on the current state before a
+        fingerprint goes into a manifest: a corruption that lands
+        between the last check and a save must not be hashed into a
+        'verified' checkpoint.  A gate, not a periodic check: the carry
+        and the divergence counts stay as they are."""
+        lf = self._leaf_fps(self._named_state())
+        mat = _coll.all_gather(lf.reshape(1, -1), self._ndata).cpu().numpy()
+        rep_cols = np.where(self._integ_rep_mask)[0]
+        agree, blamed, div_cols = _integrity.blame_minority(mat, rep_cols)
+        if agree:
+            return
+        raise _integrity.IntegrityError(
+            "state_fingerprint REFUSED at update %d: replicas disagree "
+            "on replicated state leaf/leaves %s (blamed replica(s): %s) "
+            "— stamping this state would mint a verified-but-corrupt "
+            "checkpoint; the save stays CRC-only and the next integrity "
+            "check rolls back past it"
+            % (self.num_update,
+               [self._integ_paths[c] for c in div_cols][:4], blamed))
+
+    def state_fingerprint(self) -> dict:
+        """The device-computed fingerprint of the params, aux states and
+        optimizer state (whole leaves: gathered under zero=1, so every
+        rank calls it), the record ``CheckpointManager.save`` writes
+        into the manifest.  Under ``vote`` the ranks must agree first
+        (else IntegrityError)."""
+        if self.params is None:
+            raise MXNetError("state_fingerprint needs bind()+init_params()")
+        if self._integ_mode == "vote":
+            self._save_vote_check()
+        named = self._named_state(whole=True)
+        lf, gfp = self._fingerprints(named)
+        return _integrity.manifest_record(
+            int(gfp), {p: int(v) for (p, _), v in zip(named, lf.tolist())},
+            mode=self._integ_mode)
 
     @property
     def sentinel_skips(self) -> int:

@@ -13,19 +13,26 @@ visible; this module adds the rest of the contract:
 * :meth:`CheckpointManager.latest`: the newest checkpoint whose every
   artifact still matches its manifest, walking back past truncated,
   corrupt or uncommitted saves.
+* :meth:`CheckpointManager.latest_verified`: the silent-data-corruption
+  tier above it.  Every save also records the state fingerprint the
+  device computed (``integrity.py``; ``Module.state_fingerprint``), and
+  this scan re-hashes the loaded values against it: the CRC guards the
+  bytes from the moment they landed, the fingerprint the values from
+  the moment the card held them.  It is the rollback target of
+  ``fit``'s integrity recovery, and retention never deletes the newest
+  checkpoint that passes it.
 * :func:`retry_io`: bounded retry with decorrelated-jitter backoff for
   transient input and checkpoint I/O failures, used by ``fit``'s batch
   fetch and by every manager write.
 
-The manifest format is the JAX package's, so a manifest and its params
-file cross packages both ways.  Two parts of it are not the JAX
-package's: ``rng.impl`` names the port's streams (one
-``torch.Generator`` per device, whose state the fused trainer carries in
-its optimizer-state blob), and the value-fingerprint tier
-(``integrity``) waits for the port's ``integrity.py``: the port writes
-``"integrity": null``, which verifies vacuously as it does in the JAX
-package, and a manifest that carries a record makes
-:meth:`CheckpointManager.verify_fingerprint` raise rather than pass.
+The manifest format is the JAX package's, so a manifest, its params
+file and its integrity record cross packages both ways.  ``rng.impl``
+names the port's streams (one ``torch.Generator`` per device, whose
+state the fused trainer carries in its optimizer-state blob).  The
+optimizer-state files do not cross packages, so a record the JAX
+package wrote (``rng.impl`` not the port's) is checked here leaf by
+leaf on its ``arg:`` and ``aux:`` leaves, and its ``opt:`` leaves are
+logged by name as not checked.
 
 ``BaseModule.fit(..., checkpoint=prefix, resume=True)`` wires it into
 the training loop: a killed run started again with the same arguments
@@ -44,18 +51,12 @@ import time
 import zlib
 from typing import Callable, Optional, Sequence, Tuple
 
-from .base import MXNetError
-
 __all__ = ["CheckpointManager", "Checkpoint", "retry_io"]
 
 _MANIFEST_VERSION = 1
 
 # the port's random streams, recorded in each manifest
 RNG_IMPL = "torch.Generator per device; its state in the states blob"
-
-INTEGRITY_SLICE = ("value fingerprints (the manifest's integrity record) "
-                   "wait for the port's integrity.py (ROADMAP queue A, "
-                   "item 5)")
 
 
 def retry_io(fn: Callable, attempts: int = 3, delay: float = 0.05,
@@ -198,6 +199,29 @@ class CheckpointManager:
             # or swapped symbol must fail verification, not load
             files[os.path.basename(symbol_file)] = self._entry(symbol_file)
         trainer = getattr(module, "_trainer", None)
+        # the fingerprint the device computed: what the card held at save
+        # time, hashed before the host and the disk could change it
+        integ = None
+        fp = getattr(module, "state_fingerprint", None)
+        if callable(fp):
+            from .integrity import IntegrityError
+            try:
+                integ = fp()
+            except IntegrityError as e:
+                # the replicas disagree on the state being saved: an
+                # explicit refusal, which never verifies (a missing record
+                # verifies vacuously)
+                integ = {"refused": str(e)}
+                self.logger.warning(
+                    "checkpoint %04d: state DIVERGED at save — "
+                    "deliberately left unverified (CRC-manifested "
+                    "only); the next integrity check will roll back "
+                    "past it: %s", epoch, e)
+            except Exception as e:                  # noqa: BLE001
+                self.logger.warning(
+                    "checkpoint %04d: state fingerprint unavailable "
+                    "(%s) — save still CRC-manifested, but it cannot "
+                    "pass latest_verified()", epoch, e)
         manifest = dict(extra_manifest or {})
         manifest.update({
             "version": _MANIFEST_VERSION,
@@ -207,14 +231,14 @@ class CheckpointManager:
             "sentinel_skips": trainer.sentinel_skips
             if trainer is not None else None,
             "trainer": None if trainer is None else {
-                "zero": 0,
+                "zero": trainer.zero,
                 "grad_accum": trainer.grad_accum,
-                "grad_dtype": None,
+                "grad_dtype": trainer.grad_dtype,
             },
             "rng": {"impl": RNG_IMPL},
             "wallclock": time.time(),
             "files": files,
-            "integrity": None,
+            "integrity": integ,
         })
         self._retry(lambda: self._write_manifest(epoch, manifest),
                     "manifest write")
@@ -291,15 +315,86 @@ class CheckpointManager:
         return None
 
     def verify_fingerprint(self, ck: Checkpoint) -> bool:
-        """The value tier: a manifest without an integrity record (what
-        the port writes) verifies vacuously, as in the JAX package; one
-        with a record raises, since the port cannot re-hash it yet."""
+        """Re-hash ``ck``'s loaded values against the fingerprint its
+        manifest recorded at save time.  The params and aux states come
+        from the params file, the ``opt:`` leaves from the fused
+        trainer's states blob.  A manifest without a record verifies
+        vacuously (absent evidence is not damage); a ``refused`` record
+        never verifies.  A record the JAX package wrote is checked on its
+        ``arg:`` and ``aux:`` leaves (:meth:`_verify_foreign`)."""
+        from . import integrity as _integrity
         record = (ck.manifest or {}).get("integrity")
         if not record:
             return True
-        raise MXNetError("checkpoint %04d under %r carries an integrity "
-                         "record: %s" % (ck.epoch, ck.prefix,
-                                         INTEGRITY_SLICE))
+        if record.get("refused"):
+            self.logger.warning(
+                "checkpoint %04d recorded a REFUSED fingerprint (state "
+                "diverged at save): %s", ck.epoch, record["refused"])
+            return False
+        try:
+            _, arg_params, aux_params = ck.load_params()
+        except Exception as e:                      # noqa: BLE001
+            self.logger.warning(
+                "checkpoint %04d fails fingerprint verification: params "
+                "unreadable (%s)", ck.epoch, e)
+            return False
+        named = _integrity.named_state_leaves(
+            {n: v.asnumpy() for n, v in arg_params.items()},
+            {n: v.asnumpy() for n, v in aux_params.items()})
+        opt_paths = sorted(p for p in record.get("leaves", {})
+                           if p.startswith("opt:"))
+        foreign = ((ck.manifest or {}).get("rng") or {}).get("impl") \
+            != RNG_IMPL
+        if foreign and opt_paths and record.get("algo") == _integrity.ALGO:
+            return self._verify_foreign(ck, record, named, opt_paths)
+        if opt_paths:
+            states = ck.states_path
+            if states is None:
+                self.logger.warning(
+                    "checkpoint %04d fails fingerprint verification: "
+                    "manifest records opt-state fingerprints but no "
+                    "states file", ck.epoch)
+                return False
+            try:
+                import pickle
+                with open(states, "rb") as f:
+                    state = pickle.loads(f.read())[1]
+                named += _integrity.named_state_leaves(opt_state=state)
+            except Exception as e:                  # noqa: BLE001
+                self.logger.warning(
+                    "checkpoint %04d fails fingerprint verification: "
+                    "states blob unreadable (%s)", ck.epoch, e)
+                return False
+        return _integrity.verify_manifest_record(
+            record, named, logger=self.logger,
+            what="checkpoint %04d" % ck.epoch)
+
+    def _verify_foreign(self, ck, record, named, opt_paths) -> bool:
+        """A record the JAX package wrote, over a state whose optimizer
+        file does not load here: every ``arg:`` and ``aux:`` leaf of the
+        params file against the record's per-leaf values (the global
+        fold needs the ``opt:`` leaves too); the ``opt:`` leaves are
+        logged by name as not checked."""
+        from . import integrity as _integrity
+        from . import obs as _obs
+        want = record.get("leaves", {})
+        _, got = _integrity.host_fingerprint(named)
+        have = [p for p in want if not p.startswith("opt:")]
+        bad = sorted(p for p, fp in got.items() if want.get(p) != fp)
+        missing = sorted(set(have) - set(got))
+        self.logger.warning(
+            "checkpoint %04d: the JAX package's integrity record; its "
+            "optimizer state does not load in the port, so %d opt: "
+            "leaves are NOT re-hashed: %s", ck.epoch, len(opt_paths),
+            opt_paths)
+        if not bad and not missing:
+            return True
+        self.logger.warning(
+            "checkpoint %04d fails fingerprint verification: diverging "
+            "leaves %s%s", ck.epoch, bad,
+            (", missing %s" % missing) if missing else "")
+        _obs.counter("integrity.verify_failed").inc()
+        return False
 
     def _verify_identity(self, epoch: int):
         """``(identity, manifest)`` of one epoch: the manifest by path,
@@ -359,8 +454,9 @@ class CheckpointManager:
     # ---------------------------------------------------------- prune
     def _prune(self):
         """Drop the saves older than the newest ``keep`` manifests,
-        except the newest verified one, which survives rotation so a
-        line of damaged saves cannot rotate out the last good state."""
+        except the newest one that passes both tiers, which survives
+        rotation so a line of damaged or corrupt saves cannot rotate out
+        the last state anyone can roll back to."""
         if self.keep <= 0:
             return
         epochs = self._epochs_on_disk()
@@ -369,13 +465,9 @@ class CheckpointManager:
             return
         protect = None
         for epoch in reversed(epochs):
-            try:
-                if self.verified(epoch) is not None:
-                    protect = epoch
-                    break
-            except MXNetError as e:
-                self.logger.warning("checkpoint %04d cannot be verified "
-                                    "here: %s", epoch, e)
+            if self.verified(epoch) is not None:
+                protect = epoch
+                break
         for epoch in doomed:
             if epoch == protect:
                 continue
@@ -403,4 +495,12 @@ class CheckpointManager:
                                       False):
             self._retry(lambda: module.load_optimizer_states(
                 ck.states_path), "optimizer state read")
+            saved = (ck.manifest or {}).get("trainer") or {}
+            trainer = getattr(module, "_trainer", None)
+            if trainer is not None and saved \
+                    and saved.get("zero") != trainer.zero:
+                self.logger.info(
+                    "optimizer state saved with zero=%s restored into a "
+                    "zero=%s run (the blob holds whole leaves)",
+                    saved.get("zero"), trainer.zero)
         return ck

@@ -17,10 +17,11 @@ FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
 def _port_sources():
-    """The port's modules, the card's smoke script and the worker script
-    the launcher starts for the data-parallel tests."""
+    """The port's modules, the card's smoke script and the scripts the
+    launcher starts for the data-parallel tests and the elastic drill."""
     return sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py",
+           ROOT / "tests" / "torch_elastic_train.py"]
 
 
 def _imported_modules(path):

@@ -302,7 +302,7 @@ def test_latest_rejects_torn_symbol_json(tmp_path):
     _fit_module(_train_iter(), num_epoch=2, prefix=prefix)
     mgr = resilience.CheckpointManager(prefix)
     assert mgr.latest().epoch == 2
-    assert mgr.latest_verified().epoch == 2     # integrity null: vacuous
+    assert mgr.latest_verified().epoch == 2     # the record re-hashes
     with open(prefix + "-symbol.json", "r+") as f:
         f.truncate(10)
     assert mgr.latest() is None
@@ -329,13 +329,23 @@ def test_latest_verified_memoizes_on_disk_identity(tmp_path, monkeypatch):
 
 
 def test_async_write_and_elastic_name_their_slices(tmp_path):
+    """``async_write`` still names its slice (item 9); ``fit(elastic=)``
+    is taken (item 5): a coordinator of a world of one guards every
+    step and the run ends bitwise equal to one without it."""
     mod = _fit_module(_train_iter(), num_epoch=1)
     arg, aux = mod.get_params()
     with pytest.raises(mt.MXNetError, match="item 9"):
         mt.model.save_checkpoint(str(tmp_path / "a"), 1, mod.symbol, arg,
                                  aux, async_write=True)
-    with pytest.raises(mt.MXNetError, match="item 5"):
-        _fit_module(_train_iter(), num_epoch=1, elastic=object())
+    coord = mt.elastic.ElasticCoordinator(rank=0, num_workers=1,
+                                          directory=str(tmp_path / "e"))
+    try:
+        guarded = _fit_module(_train_iter(), num_epoch=1, elastic=coord)
+    finally:
+        coord.close()
+    assert coord._guards == 5
+    want, got = _params(mod), _params(guarded)
+    assert all(np.array_equal(want[n], got[n]) for n in want)
 
 
 # ======================================================================
@@ -358,7 +368,14 @@ def test_fit_resume_matches_uninterrupted(tmp_path, fused, optimizer):
         assert np.array_equal(want[n], got[n]), n
     manifest = json.load(open(prefix + "-0004.manifest.json"))
     assert manifest["rng"]["impl"] == resilience.RNG_IMPL
-    assert manifest["integrity"] is None
+    # the fused path's record covers the optimizer state, the classic
+    # path's the parameters (a host hash, as in the JAX package)
+    record = manifest["integrity"]
+    assert record["mode"] == ("off" if fused == "always" else "host")
+    assert any(p.startswith("opt:") for p in record["leaves"]) \
+        == (fused == "always")
+    assert resilience.CheckpointManager(prefix).verify_fingerprint(
+        resilience.CheckpointManager(prefix).verify(4))
     assert manifest["step"] == (20 if fused == "always" else None)
 
 
@@ -468,9 +485,10 @@ def test_checkpoints_cross_packages(tmp_path, fused):
     """From the same initial weights both packages' ``fit(checkpoint=)``
     reach the same parameters (the JAX package's classic path's, which
     keeps the optimizer state as the port does on both); each one's manifest and params verify and
-    load in the other.  The JAX package's integrity record raises in the
-    port (item 5), and its optimizer-state file raises naming the file;
-    the port's null record verifies vacuously in the JAX package."""
+    load in the other.  The JAX package's integrity record verifies in
+    the port on its ``arg:``/``aux:`` leaves (its ``opt:`` leaves are
+    named as not checked), and its optimizer-state file raises naming
+    the file; the port's record verifies in the JAX package."""
     init = _init()
     jprefix, pprefix = str(tmp_path / "jax"), str(tmp_path / "port")
     jmod = _jax_fit(jprefix, fused, init=init)
@@ -494,8 +512,7 @@ def test_checkpoints_cross_packages(tmp_path, fused):
     _, arg, _ = ck.load_params()
     for k, w in jmod.get_params()[0].items():
         assert np.array_equal(arg[k].asnumpy(), w.asnumpy()), k
-    with pytest.raises(mt.MXNetError, match="item 5"):
-        resilience.CheckpointManager(jprefix).verify_fingerprint(ck)
+    assert resilience.CheckpointManager(jprefix).verify_fingerprint(ck)
     with pytest.raises(mt.MXNetError) as err:
         _fit_module(_train_iter(), num_epoch=3, prefix=jprefix, resume=True,
                     fused=fused)

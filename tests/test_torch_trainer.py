@@ -414,13 +414,17 @@ def test_make_update_fn_decays_weights_not_biases():
     dict(grad_dtype="bf16")])
 def test_options_of_later_slices_raise(option):
     """What waits for a later slice raises naming it; a mesh must be the
-    port's; the data-parallel knobs and remat are taken (zero=1 and the
-    bfloat16 wire inert without a mesh, as in the JAX package)."""
-    taken = ("zero", "remat", "donate_batch", "grad_dtype")
+    port's; the data-parallel knobs, remat and the integrity knobs are
+    taken (zero=1 and the bfloat16 wire inert without a mesh, as in the
+    JAX package; ``integrity_period`` on one device too)."""
+    taken = ("zero", "remat", "donate_batch", "grad_dtype", "integrity",
+             "integrity_period")
     with mt.cpu():
         if set(option) & set(taken):
             t = Trainer(_mlp(mt), mt.optimizer.SGD(), **option)
             assert not (t._zero_on or t._lowp_on or t._comm)
+            assert t.integrity == option.get("integrity", "off")
+            assert t.integrity_period == option.get("integrity_period", 100)
             return
         with pytest.raises(mt.MXNetError,
                            match="slice|item 7|not a parallel.Mesh"):

@@ -6,9 +6,10 @@
 
 Importing the port joins the launcher's ``torch.distributed`` group
 (gloo on the CPU).  Each rank writes its results as numpy to
-``<outdir>/<case>-rank<r>.npz``; the tests hold them against the JAX
-package in their own process.  This file imports only the port.
+``<outdir>/<case>-rank<r>.npz`` (records as JSON, ``.json``); the tests
+hold them against the JAX package in their own process.  This file imports only the port.
 """
+import json
 import os
 import pickle
 import sys
@@ -272,9 +273,269 @@ def run_store(out):
          dead=kv.num_dead_node(timeout=60), kv_ranks=sorted(kv_stamps))
 
 
+# ----------------------------------------------------------------------
+# the integrity vote (tests/test_torch_integrity.py): the MLP of the JAX
+# package's tests/test_integrity.py, its global batch of INTEG_BATCH rows
+# split over the ranks
+INTEG_BATCH = 8
+
+
+def save_json(out, case, record):
+    rank = coll._process_index()
+    with open(os.path.join(out, "%s-rank%d.json" % (case, rank)), "w") as f:
+        json.dump(record, f)
+
+
+def integ_mlp(sym):
+    data = sym.Variable("data")
+    net = sym.FullyConnected(data, name="fc1", num_hidden=16)
+    net = sym.Activation(net, name="relu1", act_type="relu")
+    net = sym.FullyConnected(net, name="fc2", num_hidden=4)
+    return sym.SoftmaxOutput(net, name="softmax")
+
+
+def integ_params(seed=0):
+    rng = np.random.RandomState(seed)
+    return {"fc1_weight": rng.randn(16, 32).astype("f") * 0.1,
+            "fc1_bias": np.zeros(16, "f"),
+            "fc2_weight": rng.randn(4, 16).astype("f") * 0.1,
+            "fc2_bias": np.zeros(4, "f")}
+
+
+def integ_batches(n=10, seed=1):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(INTEG_BATCH, 32).astype("f"),
+             rng.randint(0, 4, INTEG_BATCH).astype("f")) for _ in range(n)]
+
+
+def integ_trainer(**kw):
+    """The vote's trainer over a data mesh of every rank, this rank's
+    rows of each global batch bound."""
+    per = INTEG_BATCH // coll._process_count()
+    with mt.cpu():
+        t = mt.parallel.Trainer(
+            integ_mlp(mt.sym), mt.optimizer.SGD(
+                learning_rate=0.1, momentum=0.9,
+                rescale_grad=1.0 / INTEG_BATCH),
+            mesh=mt.parallel.data_parallel_mesh(), **kw)
+        t.bind(data_shapes={"data": (per, 32)},
+               label_shapes={"softmax_label": (per,)})
+        t.init_params(arg_params={k: mt.nd.array(v)
+                                  for k, v in integ_params().items()})
+    return t
+
+
+def integ_feed(t, x, y):
+    n, rank = coll._process_count(), coll._process_index()
+    per = INTEG_BATCH // n
+    rows = slice(rank * per, (rank + 1) * per)
+    return t.step({"data": x[rows], "softmax_label": y[rows]})
+
+
+def integ_run(t, batches):
+    """Feed every batch; the IntegrityError's record, or None."""
+    try:
+        for x, y in batches:
+            integ_feed(t, x, y)
+    except mt.integrity.IntegrityError as e:
+        # a copy: a rollback replay resolves a pending record's blame in
+        # place
+        return json.loads(json.dumps(e.record))
+    return None
+
+
+def integ_same(a, b):
+    return all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+
+
+def on_cpu(fn):
+    """Run ``fn`` with the CPU as the current context."""
+    def run(*args):
+        with mt.cpu():
+            return fn(*args)
+    return run
+
+
+def integ_replay(flip_step):
+    """bitflip on rank 1 at ``flip_step``, vote every 4 updates: the
+    detection, then the replay from the start, then the state against a
+    run without the fault."""
+    mt.faults.configure("bitflip@step=%d:rank=1:leaf=fc1_weight"
+                        % flip_step)
+    t = integ_trainer(integrity="vote", integrity_period=4)
+    blamed = []
+    t.on_integrity_blame = blamed.append
+    batches = integ_batches()
+    rec = integ_run(t, batches)
+    divergences = t.integrity_divergences
+    fresh = integ_trainer(integrity="vote", integrity_period=4)
+    t.set_params({k: mt.nd.array(v) for k, v in integ_params().items()}, {})
+    t.set_opt_states(fresh.get_opt_states())
+    replay = integ_run(t, batches)
+    clean = integ_trainer(integrity="vote", integrity_period=4)
+    integ_run(clean, batches)
+    mt.faults.clear()
+    return {"mode": t._integ_mode, "record": rec, "divergences": divergences,
+            "replay_record": replay, "blamed": [b["blamed"] for b in blamed],
+            "pending": t._integrity_pending, "bitwise": integ_same(t, clean)}
+
+
+@on_cpu
+def run_integrity_vote(out):
+    save_json(out, "vote-replay", integ_replay(7))
+    save_json(out, "vote-not-adjacent", integ_replay(5))
+    # ZeRO-1: the shards sit out the vote; the record's fingerprints are
+    # of whole leaves
+    tz = integ_trainer(integrity="vote", integrity_period=3, zero=1)
+    integ_run(tz, integ_batches(6))
+    named = tz._named_state(whole=True)
+    rec = tz.state_fingerprint()
+    save(out, "zero1-state", **{p: v.numpy() for p, v in named})
+    save_json(out, "zero1", {
+        "divergences": tz.integrity_divergences, "record": rec,
+        "rep": dict(zip(tz._integ_paths, tz._integ_rep_mask.tolist()))})
+    for case, spec, kw in (
+            ("zero1-flip", "bitflip@step=7:rank=0:leaf=fc1_weight",
+             dict(integrity_period=4, zero=1)),
+            ("opt-alias", "bitflip@step=1:rank=1:leaf=opt/fc1_weight",
+             dict(integrity_period=2))):
+        mt.faults.configure(spec)
+        save_json(out, case, {"record": integ_run(
+            integ_trainer(integrity="vote", **kw), integ_batches(10))})
+        mt.faults.clear()
+
+
+@on_cpu
+def run_integrity_vote4(out):
+    mt.faults.configure("bitflip@step=3:rank=2:leaf=fc2_weight:bit=3")
+    t = integ_trainer(integrity="vote", integrity_period=2)
+    rec = integ_run(t, integ_batches(6))
+    mt.faults.clear()
+    save_json(out, "vote-majority", {
+        "record": rec, "blamed": [b["blamed"] for b in t.integrity_blamed]})
+
+
+class _StubElastic:
+    """A coordinator that only records the quarantines asked of it."""
+
+    def __init__(self):
+        self.quarantined = []
+
+    def guard(self, step=None):
+        return None
+
+    def quarantine(self, rank):
+        self.quarantined.append(int(rank))
+
+
+def integ_fit(num_epoch, prefix=None, elastic=None):
+    """``Module.fit`` of the vote's MLP over a data mesh of every rank
+    (the module's context), 5 global batches an epoch, this rank's rows;
+    each rank's checkpoints under a prefix of its own."""
+    n, rank = coll._process_count(), coll._process_index()
+    rng = np.random.RandomState(0)
+    x = rng.randn(40, 32).astype("f")
+    y = rng.randint(0, 4, 40).astype("f")
+    per = INTEG_BATCH // n
+    old = os.environ.get("MXTPU_MODULE_FUSED")
+    os.environ["MXTPU_MODULE_FUSED"] = "always"
+    try:
+        mt.random.seed(0)
+        with mt.cpu():
+            it = mt.io.NDArrayIter(rank_rows(x, rank, n, INTEG_BATCH),
+                                   rank_rows(y, rank, n, INTEG_BATCH),
+                                   batch_size=per, shuffle=False)
+            mod = mt.mod.Module(integ_mlp(mt.sym),
+                                context=mt.parallel.data_parallel_mesh())
+            mod.fit(it, num_epoch=num_epoch,
+                    optimizer_params={"learning_rate": 0.1,
+                                      "momentum": 0.9,
+                                      "rescale_grad": 1.0 / INTEG_BATCH},
+                    initializer=mt.init.Xavier(),
+                    checkpoint=None if prefix is None
+                    else "%s-rank%d" % (prefix, rank),
+                    elastic=elastic)
+    finally:
+        if old is None:
+            os.environ.pop("MXTPU_MODULE_FUSED", None)
+        else:
+            os.environ["MXTPU_MODULE_FUSED"] = old
+    return mod
+
+
+@on_cpu
+def run_integrity_fit(out):
+    os.environ["MXTPU_INTEGRITY_MODE"] = "vote"
+    os.environ["MXTPU_INTEGRITY_PERIOD"] = "4"
+    clean = integ_fit(3, os.path.join(out, "clean"))
+    mt.faults.configure("bitflip@step=7:rank=1:leaf=fc1_weight")
+    inj = integ_fit(3, os.path.join(out, "inj"))
+    mt.faults.clear()
+    tr = inj._trainer
+    a, b = clean.get_params()[0], inj.get_params()[0]
+    save_json(out, "fit-rollback", {
+        "divergences": tr.integrity_divergences,
+        "blamed": [r["blamed"] for r in tr.integrity_blamed],
+        "bitwise": all(np.array_equal(a[k].asnumpy(), b[k].asnumpy())
+                       for k in a)})
+    errors = {}
+    for case, spec, env in (
+            # every update from 7 on flips the same bit again: an odd
+            # number of flips between two checks, so each replay
+            # diverges again at update 8
+            ("cap", "bitflip@step=7:rank=1:leaf=fc1_weight:count=99",
+             {"MXTPU_INTEGRITY_MAX_ROLLBACKS": "2"}),
+            ("no-ckpt", "bitflip@step=3:rank=1:leaf=fc1_weight", {})):
+        mt.faults.configure(spec)
+        os.environ.update(env)
+        try:
+            integ_fit(3 if case == "cap" else 2,
+                      os.path.join(out, case) if case == "cap" else None)
+            errors[case] = None
+        except mt.MXNetError as e:
+            errors[case] = str(e)
+        for k in env:
+            del os.environ[k]
+        mt.faults.clear()
+    stub = _StubElastic()
+    mt.faults.configure("bitflip@step=7:rank=1:leaf=fc1_weight")
+    integ_fit(3, os.path.join(out, "q"), elastic=stub)
+    mt.faults.clear()
+    # a divergence between the last check and a save: refused
+    os.environ["MXTPU_INTEGRITY_PERIOD"] = "1000"
+    mod = integ_fit(1)
+    mgr = mt.resilience.CheckpointManager(
+        os.path.join(out, "refuse-rank%d" % coll._process_index()))
+    mgr.save(mod, 1)
+    first = mgr.latest_verified().epoch
+    tr = mod._trainer
+    named = dict(tr._named_state())
+    mt.integrity.bitflip(named["arg:fc1_weight"], 1, bit=12,
+                         my_rank=coll._process_index())
+    try:
+        mod.state_fingerprint()
+        raised = False
+    except mt.integrity.IntegrityError:
+        raised = True
+    mgr.save(mod, 2)
+    ck = mgr.verify(2)
+    save_json(out, "fit-cases", {
+        "errors": errors, "quarantined": stub.quarantined,
+        "refuse": {"first_verified": first, "raised": raised,
+                   "latest": mgr.latest().epoch,
+                   "refused": bool((ck.manifest["integrity"] or {})
+                                   .get("refused")),
+                   "verifies": mgr.verify_fingerprint(ck),
+                   "latest_verified": mgr.latest_verified().epoch}})
+    del os.environ["MXTPU_INTEGRITY_MODE"]
+    del os.environ["MXTPU_INTEGRITY_PERIOD"]
+
+
 SUITES = {"n2": (run_lowp, run_trainers, run_conv_bn, run_modules,
                  run_resume, run_store),
-          "n4": (run_lowp,)}
+          "n4": (run_lowp,),
+          "integrity2": (run_integrity_vote, run_integrity_fit),
+          "integrity4": (run_integrity_vote4,)}
 
 
 if __name__ == "__main__":
