@@ -47,7 +47,17 @@ fails:
    tenant against the CPU Predictor; a replayed GPT-2 batch's kernels
    from a trace; open-loop Poisson load (ResNet-50 at 0.5x and 2x its
    single-request capacity, GPT-2 at 0.5x, at once); fault drills
-   (a poisoned request, a breaker, a drain); an overload probe;
+   (a poisoned request, a breaker, a drain); an overload probe; then
+   serve_int8: the same two tenants quantized to int8 weights for
+   bfloat16 compute (``contrib.quantization``: ResNet-50 calibrated over
+   SERVE_CALIBRATION images at the 99.9th percentile, GPT-2 small
+   weights-only) behind ``ModelServer(precision="int8")``: every int8
+   weight one byte an element beside the tenant's bytes in bfloat16, 10
+   captures with K1-bf16 in GPT-2's buckets, a burst of 4 rows a tenant
+   against the port's CPU forward of the same quantized model and
+   against the float32 tenant's top-1, a planted fault (a weight's
+   scales doubled) read past the tolerance, and a replay's ms a bucket
+   beside the float32 ones;
 7. imperative: one GPT-2-small block built only from ``mt.nd`` calls on
    ``mt.gpu()`` NDArrays at 4 x 1024 tokens, its GELU an ``mt.rtc``
    CUDA kernel, with each kernel's launches counted and the result held
@@ -109,9 +119,10 @@ fails:
    card, the trained loss falling by epoch, none of the port's kernels;
    step ms a bucket, tokens/s, each bucket's first use, the memory the six
    buckets hold, the idle share and kernels of traced steps;
-14. train_resume: the fused bfloat16 GPT-2 cell trained by ``Module.fit``
-   with a ``CheckpointManager`` checkpoint every epoch, in three processes
-   of its own: uninterrupted; killed inside its second save
+14. train_resume: the fused bfloat16 GPT-2 cell (its widths, RESUME_LAYERS
+   deep, RESUME_EPOCHS epochs) trained by ``Module.fit`` with a
+   ``CheckpointManager`` checkpoint every epoch, in three processes of
+   its own: uninterrupted; killed inside its second save
    (``MXTPU_FAULTS="crash@ckpt_write:save=2"``: exit 137, a ``.tmp``
    left); restarted with ``resume=True``, which sweeps the ``.tmp``, and
    whose parameters must be bitwise the uninterrupted run's after every
@@ -163,9 +174,20 @@ fails:
    and on the port's CPU, on Module's fused path (the card's default) and
    on its classic one, each run passing its example's own assert, the
    card's parameters within EXAMPLE_PARAM_TOL of the CPU's on each path;
-22. op_sweep_card: every case of ``tests/test_op_sweep.py``'s table whose
-   op the port registers, forward and backward on the card against the
-   CPU within the case's tolerance;
+22. op_sweep_card: every case of ``tests/test_op_sweep.py``'s table (the
+   port registers every op of it), forward and backward on the card
+   against the CPU within the case's tolerance, the imperative
+   ``_imdecode`` onto the card; then detection_ops: Proposal and
+   ROIPooling on Faster R-CNN's 38 x 50 RPN map of a 600 x 800 image, and
+   MultiBoxPrior, MultiBoxTarget and MultiBoxDetection at SSD-300's 8,732
+   anchors, 21 classes, batch 32, forward and backward on the card
+   against the CPU; then item8_examples: examples/numpy-ops,
+   torch-interop, ssd, rcnn and warpctc unchanged under the port on the
+   card (``tools/torch_run_example.py``), each to its own assert, the SSD
+   toy's fused step captured once, the scripts with a Python node on the
+   classic path naming it; and a Custom node through ``fit`` on the fused
+   path (its steps uncaptured, the reason named) and behind a
+   ``ModelServer`` (its forward eager), each against the CPU;
 23. dist_one_rank_nccl: ``tools/launch.py -n 1`` starts one worker,
    which joins a one-rank ``torch.distributed`` group over NCCL at import
    and fits the ResNet cell of train_resnet_bf16 twice: without a store,
@@ -218,13 +240,14 @@ fails:
    where the machine has two cards or more: the check captured, the
    majority blaming at detection);
 29. elastic_shrink: ``tools/launch.py --local-elastic 2`` runs
-   ``tests/torch_elastic_train.py --model gpt2`` with rank 1 killed at
+   ``tests/torch_elastic_train.py --model gpt2`` (ELASTIC_LAYERS deep,
+   ELASTIC_EPOCHS epochs) with rank 1 killed at
    its step-4 guard (``host_dead``): rank 0 publishes the shrink with
    rank 1 dead, the launcher relaunches one worker (``shrinking 2 ->
    1``), which resumes from the newest checkpoint; ``ELASTIC_RECOVERY_S``,
    each process's longest interpreter-lock stall, and the final
    parameters bitwise a one-process ``--replay`` from the same checkpoint
-   epoch;
+   epoch, started beside the drill;
 30. times: each kernel, its plain version and the PyTorch library call
    that computes the same function, at the serving shapes, the
    attention forward and backward in each dtype; the
@@ -250,6 +273,14 @@ import sys
 import tempfile
 import threading
 import time
+
+if __name__ == "__main__" and "PYTHONPYCACHEPREFIX" not in os.environ:
+    # bytecode cached in the checkout, for this process and every one it
+    # starts: where the interpreter's packages ship no .pyc and cannot
+    # hold one, each process would compile torch again (seconds a start)
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), ".pycache")
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
 
 import numpy as np
 import torch
@@ -381,10 +412,14 @@ LSTM_SENTENCES, LSTM_EPOCHS, LSTM_TRACED_STEPS = 2000, 2, 3
 LSTM_CARD_TOL = 1e-5
 # the RNN op alone at the cell's widths: T 60, N 32, I = H = 200, 2 layers
 RNN_OP_SHAPE = dict(T=60, N=32, I=200, H=200, layers=2)
-# train_resume: the fused bfloat16 cell (gpt2_train_cell), a checkpoint
-# every epoch kept two deep, the run killed inside its second save (the
-# params write of epoch 2), then restarted with resume=True
+# train_resume: the fused bfloat16 cell (gpt2_train_cell) at GPT-2 small's
+# widths, RESUME_LAYERS deep (the checkpoint is then mostly the 38.6 M
+# parameter embedding and head: 1.1 GB, not 1.96 GB), RESUME_EPOCHS
+# epochs, a checkpoint every epoch kept two deep, the run killed inside
+# its second save (the params write of epoch 2), then restarted with
+# resume=True
 RESUME_KEEP, RESUME_FAULT = 2, "crash@ckpt_write:save=2"
+RESUME_LAYERS, RESUME_EPOCHS = 2, 2
 RESUME_CHILD_S = 600
 # train_reshape: batch sizes in turn, RESHAPE_STEPS[i] steps at each
 RESHAPE_BATCHES, RESHAPE_STEPS = (4, 8, 4), (2, 2, 1)
@@ -3499,8 +3534,9 @@ def resume_child(prefix, mode):
     X, Y = cyclic_tokens(BATCH * TRAIN_BATCHES,
                          np.random.default_rng(SEED + 3), np.int32)
     data = mt.io.NDArrayIter(X, Y, batch_size=BATCH)
-    mod = mt.mod.Module(mt.models.transformer.get_symbol(**GPT2_SMALL),
-                        context=mt.gpu(), compute_dtype="bfloat16")
+    mod = mt.mod.Module(mt.models.transformer.get_symbol(
+        **dict(GPT2_SMALL, num_layers=RESUME_LAYERS)),
+        context=mt.gpu(), compute_dtype="bfloat16")
     mgr = _TimedManager(prefix, keep=RESUME_KEEP)
     mt.random.seed(SEED)
 
@@ -3511,7 +3547,7 @@ def resume_child(prefix, mode):
                "fingerprint": _param_fingerprint(tr.params)})
 
     reset_launch_counts()
-    mod.fit(data, num_epoch=TRAIN_EPOCHS, optimizer="adam",
+    mod.fit(data, num_epoch=RESUME_EPOCHS, optimizer="adam",
             optimizer_params={"learning_rate": TRAIN_LR},
             initializer=mt.init.Xavier(**TRAIN_INIT),
             eval_metric=mt.metric.Perplexity(None), checkpoint=mgr,
@@ -3526,21 +3562,32 @@ def resume_child(prefix, mode):
            "latest_ms": mgr.latest_ms})
 
 
-def _run_resume_child(prefix, mode, fault=None):
-    """A resume_child run: (exit code, its steps by update count, its
-    RESUME_DONE record or None, seconds from start to its first step,
-    the output's tail)."""
+def _start_resume_child(prefix, mode, fault=None):
+    """Start a resume_child run: (the process, its start time)."""
     env = dict(os.environ)
     env.pop("MXTPU_FAULTS", None)
     if fault:
         env["MXTPU_FAULTS"] = fault
     t0 = time.time()
-    res = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "resume_child", prefix,
-         mode], env=env, capture_output=True, text=True,
-        timeout=RESUME_CHILD_S)
+         mode], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, t0
+
+
+def _finish_resume_child(proc, t0):
+    """Wait for a resume_child run: (exit code, its steps by update
+    count, its RESUME_DONE record or None, seconds from start to its
+    first step, the output's tail)."""
+    try:
+        out, err = proc.communicate(timeout=RESUME_CHILD_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     steps, done = {}, None
-    for line in res.stdout.splitlines():
+    for line in out.splitlines():
         if not line.startswith("{"):
             continue
         rec = json.loads(line)
@@ -3550,16 +3597,15 @@ def _run_resume_child(prefix, mode, fault=None):
             done = rec
     first = min(steps.values(), key=lambda r: r["RESUME_STEP"])["wall"] \
         if steps else None
-    tail = (res.stdout[-2000:], res.stderr[-4000:])
-    return res.returncode, steps, done, \
-        None if first is None else first - t0, tail
+    return proc.returncode, steps, done, \
+        None if first is None else first - t0, (out[-2000:], err[-4000:])
 
 
 def train_resume(card):
     """Crash-consistent checkpoints with resume on the fused bfloat16
-    cell: an uninterrupted run, a run killed inside its second save
-    (RESUME_FAULT: exit 137, a ``.tmp`` left), and that run restarted
-    with ``resume=True``, each a process of its own.  Asserts the kill,
+    cell: an uninterrupted run and a run killed inside its second save
+    (RESUME_FAULT: exit 137, a ``.tmp`` left), side by side, then that
+    run restarted with ``resume=True``, each a process of its own.  Asserts the kill,
     the ``.tmp`` swept by the restart, the restarted run's parameters
     bitwise the uninterrupted run's after every step (naming the first
     that differs) and at the end, and K1-bf16 and B2-bf16 launched on the
@@ -3569,7 +3615,8 @@ def train_resume(card):
     import shutil
     _phase("train_resume")
     t_phase = time.perf_counter()
-    symbol = mt.models.transformer.get_symbol(**GPT2_SMALL)
+    symbol = mt.models.transformer.get_symbol(
+        **dict(GPT2_SMALL, num_layers=RESUME_LAYERS))
     shapes, _, _ = symbol.infer_shape(
         data=(BATCH, GPT2_SMALL["seq_len"]),
         softmax_label=(BATCH, GPT2_SMALL["seq_len"]))
@@ -3577,8 +3624,8 @@ def train_resume(card):
                    zip(symbol.list_arguments(), shapes)
                    if name not in ("data", "softmax_label"))
     # params, Adam's m and v, float32; RESUME_KEEP saves and one more
-    # before the prune, and a torn save's .tmp
-    need = 12 * n_params * (RESUME_KEEP + 2)
+    # before the prune, and a torn save's .tmp; two runs at once
+    need = 2 * 12 * n_params * (RESUME_KEEP + 2)
     tmp = tempfile.mkdtemp(prefix="mxtpu_resume_")
     try:
         free = shutil.disk_usage(tmp).free
@@ -3587,18 +3634,23 @@ def train_resume(card):
         if free < need:
             raise AssertionError("train_resume needs %d bytes free in %s, "
                                  "has %d" % (need, tmp, free))
-        runs = {}
+        # the uninterrupted and the killed run side by side on the card
+        # (each process's own fixed-shape steps; they share nothing),
+        # then the restart
         full_dir = os.path.join(tmp, "full")
         os.makedirs(full_dir)
-        runs["full"] = _run_resume_child(os.path.join(full_dir, "ckpt"),
-                                         "full")
-        shutil.rmtree(full_dir)
         prefix = os.path.join(tmp, "run", "ckpt")
         os.makedirs(os.path.dirname(prefix))
-        runs["killed"] = _run_resume_child(prefix, "killed", RESUME_FAULT)
+        started = {"full": _start_resume_child(
+            os.path.join(full_dir, "ckpt"), "full"),
+            "killed": _start_resume_child(prefix, "killed", RESUME_FAULT)}
+        runs = {mode: _finish_resume_child(*started[mode])
+                for mode in ("full", "killed")}
+        shutil.rmtree(full_dir)
         leaked = sorted(n for n in os.listdir(os.path.dirname(prefix))
                         if n.endswith(".tmp"))
-        runs["resumed"] = _run_resume_child(prefix, "resumed")
+        runs["resumed"] = _finish_resume_child(
+            *_start_resume_child(prefix, "resumed"))
         left = sorted(n for n in os.listdir(os.path.dirname(prefix))
                       if n.endswith(".tmp"))
     finally:
@@ -3610,7 +3662,7 @@ def train_resume(card):
                                  "%d): %s" % (mode, rc, want_rc, tail))
     full, killed, resumed = (runs[m][1] for m in ("full", "killed",
                                                    "resumed"))
-    n_steps = TRAIN_EPOCHS * TRAIN_BATCHES
+    n_steps = RESUME_EPOCHS * TRAIN_BATCHES
     if sorted(full) != list(range(1, n_steps + 1)):
         raise AssertionError("the uninterrupted run took steps %s"
                              % sorted(full))
@@ -3624,7 +3676,8 @@ def train_resume(card):
     done_full, done = runs["full"][2], runs["resumed"][2]
     counts = done["launches"]
     record = {
-        "train_resume": "gpt2-small fused bfloat16", "params": n_params,
+        "train_resume": "gpt2-small fused bfloat16, %d layers, %d epochs"
+        % (RESUME_LAYERS, RESUME_EPOCHS), "params": n_params,
         "fault": RESUME_FAULT, "killed_steps": sorted(killed),
         "resumed_steps": sorted(resumed), "leaked_tmp": leaked,
         "tmp_after_restart": left, "first_differing_step": first_diff,
@@ -3651,7 +3704,7 @@ def train_resume(card):
                                  record["restart_to_first_step_s"]),
           flush=True)
     k1, b2 = K1_SOURCES[torch.bfloat16], B2_SOURCES[torch.bfloat16]
-    layers = GPT2_SMALL["num_layers"]
+    layers = RESUME_LAYERS
     if not leaked or left or resumed_from != TRAIN_BATCHES + 1 \
             or sorted(resumed) != list(range(resumed_from, n_steps + 1)) \
             or first_diff is not None or not record["final_digest_equal"]:
@@ -5453,19 +5506,36 @@ def _op_run(case, device, cots=None, rng=None):
             [a.detach().float().cpu() for a in new_aux], grads)
 
 
+def _imdecode_on_card():
+    """The table's imperative ``_imdecode`` case on the card: its 4 x 6
+    RGB image as PNG bytes in a card NDArray, decoded back exactly, onto
+    the card."""
+    import io
+    from PIL import Image
+    img = (np.arange(4 * 6 * 3) % 255).astype("uint8").reshape(4, 6, 3)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    raw = np.frombuffer(buf.getvalue(), dtype=np.uint8).astype("f")
+    out = mt.nd._imdecode(mt.nd.array(raw, ctx=mt.gpu(0)))
+    return out.data.is_cuda and np.array_equal(out.asnumpy(), img)
+
+
+IMPERATIVE_ON_CARD = {"_imdecode": _imdecode_on_card}
+
+
 def op_sweep_card(card):
-    """Every case of tests/test_op_sweep.py's table whose op the port
-    registers, forward and backward on the card in float32 against the
-    port's CPU (the same random head gradients), within the case's own
-    tolerance (a gradient case's rtol/atol, a forward case's 1e-3/1e-4);
-    a sampler by its case's check on the card's draw.  Prints the worst
-    relative error per op family (the op's module).  Returns (launches,
-    record)."""
+    """Every case of tests/test_op_sweep.py's table, forward and backward
+    on the card in float32 against the port's CPU (the same random head
+    gradients), within the case's own tolerance (a gradient case's
+    rtol/atol, a forward case's 1e-3/1e-4); a sampler by its case's
+    check on the card's draw; the imperative ``_imdecode`` case decoded
+    onto the card.  Prints the worst relative error per op family (the
+    op's module).  Returns (launches, record)."""
     from mxnet_tpu_torch.op import registry as treg
     _phase("op_sweep_card")
     cases = op_sweep_cases()
-    run = [c for c in cases if c["kind"] != "imp"
-           and (c["op"] in treg._REGISTRY or c["op"] in treg._ALIASES)]
+    run = [c for c in cases
+           if c["op"] in treg._REGISTRY or c["op"] in treg._ALIASES]
     reset_launch_counts()
     t0 = time.perf_counter()
     worst, failed = {}, []
@@ -5473,6 +5543,10 @@ def op_sweep_card(card):
     for case in run:
         op = treg.get(case["op"])
         family = op.fn.__module__.rsplit(".", 1)[-1]
+        if case["kind"] == "imp":
+            if not IMPERATIVE_ON_CARD[case["op"]]():
+                failed.append(case["id"])
+            continue
         if op.uses_rng and not case["loc"]:
             gen = torch.Generator(device=cuda).manual_seed(SEED)
             out, _, _ = _op_run(case, cuda, rng=gen)
@@ -5512,7 +5586,7 @@ def op_sweep_card(card):
           "%.1f s; worst relative error by family %s; failed %s" % (
               len(run), len(cases), record["seconds"],
               {k: "%.1e" % v for k, v in worst.items()}, failed), flush=True)
-    if failed or not run:
+    if failed or len(run) != len(cases):
         raise AssertionError("op_sweep_card gave %s" % record)
     return counts, record
 
@@ -6597,11 +6671,16 @@ INTEG_FIT_EPOCHS, INTEG_FIT_FLIP = 2, TRAIN_BATCHES + 2
 # rank 1 after update VOTE_FLIP, detected by the next check (update
 # VOTE_FLIP + 1), VOTE_STEPS steps a run
 VOTE_ROWS, VOTE_PERIOD, VOTE_FLIP, VOTE_STEPS = 4, 1, 1, 2
-# elastic_shrink: tests/torch_elastic_train.py --model gpt2 (2 epochs of
-# 2 steps a rank, a 20 s heartbeat timeout: at 4 s a rank saving its 2 GB
-# checkpoint was once declared dead); rank 1 dies at its step-4 guard,
-# rank 0 resumes from epoch 1's checkpoint
+# elastic_shrink: tests/torch_elastic_train.py --model gpt2 at GPT-2
+# small's widths, ELASTIC_LAYERS deep (the drill's depth), ELASTIC_EPOCHS
+# epochs of 2 steps a rank (a 10 s heartbeat timeout, above 12 times the
+# longest interpreter-lock stall measured at this depth; at 12 layers a
+# 4 s timeout once declared a rank saving its 2 GB checkpoint dead);
+# rank 1 dies at its step-4 guard, rank 0 resumes from epoch
+# ELASTIC_RESUME_EPOCH's checkpoint, which the replay, started beside
+# the drill, waits for
 ELASTIC_FAULT = "host_dead@step=4:rank=1"
+ELASTIC_LAYERS, ELASTIC_EPOCHS, ELASTIC_RESUME_EPOCH = 2, 2, 1
 ELASTIC_TIMEOUT_S = 600
 
 
@@ -6973,37 +7052,47 @@ def elastic_shrink(card):
     publishes the shrink (2 -> 1), the launcher relaunches one worker,
     which resumes from the newest checkpoint; ELASTIC_RECOVERY_S is the
     launcher's, and the final parameters must be bitwise a one-process
-    ``--replay`` from the same checkpoint epoch."""
+    ``--replay`` from the same checkpoint epoch, started beside the
+    drill (it waits for that checkpoint)."""
     _phase("elastic_shrink")
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(prefix="mxtpu-elastic-")
-    env = dict(os.environ, MXTPU_FAULTS=ELASTIC_FAULT)
+    env = dict(os.environ)
     for k in ("MXTPU_COORDINATOR", "MXTPU_ELASTIC_DIR",
-              "MXTPU_HEARTBEAT_DIR", "MXTPU_MODULE_FUSED"):
+              "MXTPU_HEARTBEAT_DIR", "MXTPU_MODULE_FUSED", "MXTPU_FAULTS"):
         env.pop(k, None)
     drill = [sys.executable, os.path.join(ROOT, "tests",
                                           "torch_elastic_train.py"),
-             work, "--model", "gpt2"]
+             work, "--model", "gpt2", "--epochs", str(ELASTIC_EPOCHS)]
 
-    def run(cmd, env):
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                stdout=subprocess.PIPE,
+    def start(cmd, env, out=subprocess.PIPE):
+        return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
                                 stderr=subprocess.STDOUT, text=True,
                                 start_new_session=True)
+
+    def finish(proc, what):
         try:
-            text, _ = proc.communicate(timeout=ELASTIC_TIMEOUT_S)
+            text, _ = proc.communicate(
+                timeout=max(1.0, ELASTIC_TIMEOUT_S
+                            - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.communicate()
             raise AssertionError("elastic_shrink: %s ran past %d s"
-                                 % (cmd[1], ELASTIC_TIMEOUT_S))
-        return proc.returncode, text
+                                 % (what, ELASTIC_TIMEOUT_S))
+        return proc.returncode, text, time.perf_counter() - t0
 
+    procs = []
     try:
-        code, text = run([sys.executable, os.path.join(
+        procs.append(start([sys.executable, os.path.join(
             ROOT, "tools", "launch.py"), "--local-elastic", "2", "--"]
-            + drill, env)
-        elastic_s = time.perf_counter() - t0
+            + drill, dict(env, MXTPU_FAULTS=ELASTIC_FAULT)))
+        # the replay's output to a file: no pipe fills while it waits
+        replay_log = os.path.join(work, "replay.log")
+        with open(replay_log, "w") as out:
+            procs.append(start(drill + ["--replay",
+                                        str(ELASTIC_RESUME_EPOCH)], env, out))
+        code, text, elastic_s = finish(procs[0], "the launcher")
         lines = [ln for ln in text.splitlines()
                  if any(k in ln for k in (
                      "membership", "shrinking", "auto-resume",
@@ -7016,56 +7105,563 @@ def elastic_shrink(card):
         if code != 0:
             raise AssertionError("elastic_shrink: the launcher exited %d:\n%s"
                                  % (code, text[-4000:]))
-        with open(os.path.join(work, "resume-info.json")) as f:
-            info = json.load(f)
-        env.pop("MXTPU_FAULTS")
-        t1 = time.perf_counter()
-        code, rtext = run(drill + ["--replay", str(info["resumed_epoch"])],
-                          env)
-        replay_s = time.perf_counter() - t1
+        code, _, replay_s = finish(procs[1], "the replay")
+        with open(replay_log) as f:
+            rtext = f.read()
         if code != 0:
             raise AssertionError("elastic_shrink: the replay exited %d:\n%s"
                                  % (code, rtext[-4000:]))
+        with open(os.path.join(work, "resume-info.json")) as f:
+            info = json.load(f)
         finals = {}
         for tag in ("final", "replay-final"):
             with open(os.path.join(work, tag + ".json")) as f:
                 finals[tag] = json.load(f)
-        procs = {}
+        records = {}
         for name in sorted(os.listdir(work)):
             if name.startswith("record-"):
                 with open(os.path.join(work, name)) as f:
-                    procs[name[len("record-"):-len(".json")]] = json.load(f)
+                    records[name[len("record-"):-len(".json")]] = \
+                        json.load(f)
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
         shutil.rmtree(work, ignore_errors=True)
     total = {"rtc": 0}
-    for tag, rec in procs.items():
+    for tag, rec in records.items():
         if "replay" not in tag:
             for k, v in rec["launches"].items():
                 total[k] = total.get(k, 0) + v
-    record = {"elastic_shrink": "gpt2-small bf16, %s" % ELASTIC_FAULT,
+    record = {"elastic_shrink": "gpt2-small bf16, %d layers, %d epochs, %s"
+              % (ELASTIC_LAYERS, ELASTIC_EPOCHS, ELASTIC_FAULT),
               "shrunk": "shrinking 2 -> 1" in text,
               "dead_rank_1": "dead=[1]; shrinking 2 -> 1" in text,
               "resumed": info, "ELASTIC_RECOVERY_S": recovery,
               "bitwise_replay": finals["final"] == finals["replay-final"],
               "launches_by_process": {k: v["launches"]
-                                      for k, v in procs.items()},
-              "max_stall_s": {k: v["max_stall_s"] for k, v in procs.items()},
+                                      for k, v in records.items()},
+              "max_stall_s": {k: v["max_stall_s"] for k, v in records.items()},
               "elastic_s": elastic_s,
-              "replay_s": replay_s, "phase_s": time.perf_counter() - t0,
+              "replay_end_s": replay_s,
+              "phase_s": time.perf_counter() - t0,
               "card": card}
     _emit(record)
     print("elastic_shrink (%s): shrunk %s, resumed from epoch %s at world "
           "%s, ELASTIC_RECOVERY_S %s, bitwise the replay %s; the drill "
-          "%.1f s, the replay %.1f s; longest interpreter-lock stalls %s"
+          "%.1f s, the replay's end at %.1f s; longest interpreter-lock "
+          "stalls %s"
           % (card, record["shrunk"], info["resumed_epoch"], info["world"],
              recovery, record["bitwise_replay"], elastic_s, replay_s,
              record["max_stall_s"]),
           flush=True)
     if not (record["shrunk"] and record["dead_rank_1"]
-            and info["world"] == 1 and recovery and record["bitwise_replay"]
+            and info["world"] == 1
+            and info["resumed_epoch"] == ELASTIC_RESUME_EPOCH
+            and recovery and record["bitwise_replay"]
             and "auto-resume from checkpoint epoch" in text):
         raise AssertionError("elastic_shrink: %s" % record)
     return total, record
+
+
+# ----------------------------------------------------------------------
+# serve_int8: serve_server's two tenants quantized to int8 weights for
+# bfloat16 compute (contrib.quantization), behind ModelServer(precision=
+# "int8"); ResNet-50 calibrated over SERVE_CALIBRATION images at the
+# SERVE_INT8_PERCENTILE-th percentile, GPT-2 small weights-only.  One
+# burst of SERVE_INT8_ROWS requests a tenant, filling bucket 4; its rows
+# against the port's eager forward of the same quantized symbol and
+# weights on the CPU (bfloat16 both sides), within SERVE_INT8_TOL of the
+# largest reference value, and their top-1 against the float32 tenant's
+# on the card on at least SERVE_INT8_TOP1 of its rows (GPT-2: of its
+# token positions; the weights are random, so near ties flip under the
+# int8 rounding).  The tolerance lies between the sound path's gap and a
+# planted fault's (PERF.md, tools/torch_int8_parity.py): ResNet-50's gap
+# comes from its activations' fake quantization, where a value that the
+# CPU and the card sum apart (by a float32 rounding, or a bfloat16 one)
+# lands on the other side of a 1/127 step, and the steps compound
+# through the 16 units.  The planted fault, the middle weight's scales
+# doubled on the card, must read above the tolerance in every run.
+SERVE_INT8_PERCENTILE = 99.9
+SERVE_INT8_ROWS = {"resnet-50": (1, 1, 2), "gpt2-small": (1, 1, 2)}
+SERVE_INT8_TOL = {"resnet-50": 0.1, "gpt2-small": 0.04}
+SERVE_INT8_TOP1 = {"resnet-50": 0.75, "gpt2-small": 0.8}
+
+
+def _to_bf16(params):
+    """Float32 tensors as bfloat16, the rest (int8, bfloat16) as they
+    are: the bfloat16 tier's weights."""
+    return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+            for k, v in params.items()}
+
+
+def _nd(params):
+    return {k: mt.nd.NDArray(v) for k, v in params.items()}
+
+
+def int8_tenants(tenants):
+    """serve_tenants' two tenants quantized for bfloat16 compute:
+    name -> (symbol, int8 and bfloat16 weights, aux states, per-example
+    shape, row maker), plus each tenant's quantization record."""
+    out, info = {}, {}
+    rsym, rarg, raux, image, rmake = tenants["resnet-50"]
+    calib = np.random.default_rng(SEED + 7).standard_normal(
+        (SERVE_CALIBRATION,) + image, dtype=np.float32)
+    ctx = mt.gpu(0)
+    with ctx:
+        it = mt.io.NDArrayIter({"data": calib}, None, SERVE_CALIBRATION)
+        t0 = time.perf_counter()
+        qsym, qarg, qaux, cal = mt.contrib.quantization.calibrate_model(
+            rsym, _nd(rarg), _nd(raux), calib_iter=it,
+            calib_mode="percentile", percentile=SERVE_INT8_PERCENTILE,
+            compute_dtype="bfloat16", ctx=ctx)
+        info["resnet-50"] = {
+            "calibrate_s": time.perf_counter() - t0, "digest": cal.digest,
+            "tag": mt.contrib.quantization.quant_tag(qsym),
+            "weights": len(cal.weight_axes),
+            "activations": len(cal.act_scales)}
+        out["resnet-50"] = (qsym, _to_bf16({k: v.data for k, v in
+                                            qarg.items()}),
+                            _to_bf16({k: v.data for k, v in qaux.items()}),
+                            image, rmake)
+        lsym, larg, _, example, lmake = tenants["gpt2-small"]
+        t0 = time.perf_counter()
+        qsym, qarg, _ = mt.contrib.quantization.quantize_model(
+            lsym, _nd(larg), compute_dtype="bfloat16")
+        info["gpt2-small"] = {
+            "quantize_s": time.perf_counter() - t0,
+            "tag": mt.contrib.quantization.quant_tag(qsym),
+            "kept_float": sum(not k.endswith(("_quant", "_quant_scale"))
+                              for k in qarg)}
+        out["gpt2-small"] = (qsym, _to_bf16({k: v.data for k, v in
+                                             qarg.items()}), {}, example,
+                             lmake)
+    return out, info
+
+
+def _weight_bytes(params, aux):
+    return sum(v.numel() * v.element_size()
+               for d in (params, aux) for v in d.values())
+
+
+def _rel_gap(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def serve_int8(card, float_replay_ms):
+    """ResNet-50 and GPT-2 small quantized to int8 weights (bfloat16
+    compute) behind ``ModelServer(precision="int8")``: every int8
+    weight at one byte an element beside the tenant's bytes in
+    bfloat16, 10 captures at start with K1-bf16 launched by GPT-2's
+    buckets, a burst against the port's CPU forward of the same
+    quantized symbol and weights and against the float32 tenant's top-1,
+    a planted fault that must read past the tolerance, and a replay's
+    device ms a bucket beside serve_server's float32 tenants'.  Returns
+    (launches, record)."""
+    _phase("serve_int8")
+    t_phase = time.perf_counter()
+    tenants = serve_tenants()
+    qtenants, info = int8_tenants(tenants)
+    layers = GPT2_SMALL["num_layers"]
+    k1 = K1_SOURCES[torch.bfloat16]
+    record = {"card": card, "quantization": info}
+    srv = mt.serving.ModelServer(buckets=SERVE_BUCKETS, max_wait_us=2000,
+                                 ctx=mt.gpu(0), precision="int8")
+    for name, (sym, arg, aux, example, _) in qtenants.items():
+        srv.add_model(name, sym, arg, aux, input_shapes={"data": example})
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    srv.start()
+    record["start_s"] = time.perf_counter() - t0
+    launches = launch_counts()
+    st = srv.stats()
+    expect_launches("serve_int8 start", launches,
+                    **{k1: 2 * layers * len(SERVE_BUCKETS)})
+    if st["graph_captures"] != 2 * len(SERVE_BUCKETS) or st["retraces"]:
+        raise AssertionError("serve_int8 start: %s" % st)
+    # the weights: int8 at one byte an element, the rest bfloat16
+    record["bytes"] = {}
+    for name, m in srv._models.items():
+        int8 = {k: v for k, v in m.params.items() if v.dtype == torch.int8}
+        farg, faux = tenants[name][1], tenants[name][2]
+        bf16 = 2 * sum(v.numel() for d in (farg, faux) for v in d.values())
+        held = st["per_model"][name]["weight_bytes_on_device"]
+        rec = {"int8_tensors": len(int8),
+               "int8_elements": sum(v.numel() for v in int8.values()),
+               "int8_bytes": sum(v.numel() * v.element_size()
+                                 for v in int8.values()),
+               "weight_bytes_on_device": held,
+               "same_tenant_bfloat16_bytes": bf16,
+               "float32_bytes": _weight_bytes(farg, faux)}
+        record["bytes"][name] = rec
+        if not int8 or rec["int8_bytes"] != rec["int8_elements"] \
+                or held != _weight_bytes(m.params, m.aux) \
+                or held >= bf16 \
+                or srv.load_report()["per_model"][name][
+                    "weight_bytes_on_device"] != held \
+                or json.loads(st["per_model"][name]["quant"])["dtype"] \
+                != "int8":
+            raise AssertionError("serve_int8 %s bytes: %s" % (name, rec))
+    # a burst a tenant, against the CPU's forward of the same quantized
+    # model and the float32 tenant's top-1 on the card
+    rng = np.random.default_rng(SEED + 9)
+    record["parity"] = {}
+    for name, (sym, arg, aux, example, make) in qtenants.items():
+        rows = [make(rng, n) for n in SERVE_INT8_ROWS[name]]
+        futs = [srv.submit({"data": x}, model=name) for x in rows]
+        got = torch.cat([f.result(300)[0] for f in futs])
+        x = torch.cat(rows)
+        m = srv._models[name]
+        inputs = list(m.example_shapes) + list(m.label_trailing)
+        labels = {n: torch.zeros((len(x),) + t)
+                  for n, t in m.label_trailing.items()}
+        with uncounted():
+            cpu = torch.device("cpu")
+            (want,) = mt.serving.CompiledForward(sym, inputs).run(
+                {k: v.to(cpu) for k, v in arg.items()},
+                {k: v.to(cpu) for k, v in aux.items()},
+                dict(labels, data=x.to(m.input_dtypes["data"])))
+            fsym, farg, faux = tenants[name][:3]
+            feed = {"data": x.cuda(),
+                    **{n: v.cuda() for n, v in labels.items()}}
+            (ref,) = mt.serving.CompiledForward(fsym, inputs).run(
+                farg, faux, feed)
+            scales = sorted(k for k in arg if k.endswith("_quant_scale")
+                            and "_act_" not in k)
+            fault = scales[len(scales) // 2]
+            (bad,) = mt.serving.CompiledForward(sym, inputs).run(
+                dict(arg, **{fault: 2 * arg[fault]}), aux,
+                dict(feed, data=feed["data"].to(m.input_dtypes["data"])))
+        gap = _rel_gap(got, want)
+        top1 = float((got.float().argmax(-1) == ref.float().cpu()
+                      .argmax(-1)).float().mean())
+        record["parity"][name] = {"rows": len(x), "max_rel_gap_cpu": gap,
+                                  "top1_vs_float32": top1,
+                                  "planted_fault": fault + " x2",
+                                  "planted_rel_gap_cpu": _rel_gap(
+                                      bad.cpu(), want),
+                                  "dtype": str(got.dtype),
+                                  "finite": bool(torch.isfinite(
+                                      got.float()).all())}
+        del got, want, ref, bad
+    bad = {n: r for n, r in record["parity"].items()
+           if r["max_rel_gap_cpu"] > SERVE_INT8_TOL[n]
+           or r["planted_rel_gap_cpu"] <= SERVE_INT8_TOL[n]
+           or r["top1_vs_float32"] < SERVE_INT8_TOP1[n] or not r["finite"]}
+    if bad:
+        raise AssertionError("serve_int8 parity: %s" % record["parity"])
+    record["replay_ms"] = replay_ms(srv)
+    record["float32_replay_ms"] = float_replay_ms
+    record["graph_replays"] = srv.stats()["graph_replays"]
+    record["phase_s"] = time.perf_counter() - t_phase
+    _emit({"serve_int8": record})
+    print("serve_int8 (%s): bytes %s; parity %s; replay ms int8 %s, "
+          "float32 %s" % (card, {n: (r["weight_bytes_on_device"],
+                                     r["same_tenant_bfloat16_bytes"])
+                                 for n, r in record["bytes"].items()},
+                          record["parity"], record.get("replay_ms"),
+                          float_replay_ms), flush=True)
+    del srv, tenants, qtenants
+    release_serving()
+    return launches, record
+
+
+# ----------------------------------------------------------------------
+# detection_ops: the detection ops at the sizes of the networks they come
+# from, on the card against the port's CPU run of the same op (the same
+# inputs and head gradients from SEED), forward and backward, within
+# DET_TOL: Faster R-CNN's RPN over VGG-16's 38 x 50 map of a 600 x 800
+# image (Proposal at its defaults, stride 16, 6000 boxes before NMS and
+# 300 after, with Faster R-CNN's 3 scales x 3 ratios: 9 anchors) and its
+# ROIPooling (7 x 7, 1/16, 128 rois
+# over a 512-channel map); SSD-300's six maps (8,732 anchors, the sizes
+# and ratios of the upstream SSD example), 21 VOC classes, batch 32,
+# labels of SSD_LABELS slots padded with -1
+DET_RPN_MAP, DET_IMAGE = (38, 50), (600, 800)
+DET_ROIS, DET_POOLED, DET_CHANNELS = 128, (7, 7), 512
+SSD_MAPS = ((38, (0.1, 0.141), (1, 2, 0.5)),
+            (19, (0.2, 0.272), (1, 2, 0.5, 3, 1 / 3)),
+            (10, (0.37, 0.447), (1, 2, 0.5, 3, 1 / 3)),
+            (5, (0.54, 0.619), (1, 2, 0.5, 3, 1 / 3)),
+            (3, (0.71, 0.79), (1, 2, 0.5)),
+            (1, (0.88, 0.961), (1, 2, 0.5)))
+SSD_ANCHORS, SSD_CLASSES, SSD_BATCH, SSD_LABELS = 8732, 21, 32, 16
+DET_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def ssd300_priors(device):
+    """SSD-300's anchors: MultiBoxPrior over each of SSD_MAPS (steps of
+    1/size), concatenated: (1, 8732, 4)."""
+    outs = []
+    for size, sizes, ratios in SSD_MAPS:
+        data = mt.nd.NDArray(torch.zeros(1, 1, size, size, device=device))
+        outs.append(mt.nd.MultiBoxPrior(
+            data, sizes=sizes, ratios=ratios,
+            steps=(1.0 / size, 1.0 / size)).data)
+    return torch.cat(outs, dim=1)
+
+
+def detection_inputs(rng, anchors):
+    """The cases: (op, params, inputs as numpy), from ``rng``."""
+    h, w = DET_RPN_MAP
+    logits = rng.standard_normal((1, 2, 9, h, w)).astype(np.float32)
+    rpn_prob = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)) \
+        .reshape(1, 18, h, w).astype(np.float32)
+    deltas = (rng.standard_normal((1, 36, h, w)) * 0.1).astype(np.float32)
+    info = np.array([[DET_IMAGE[0], DET_IMAGE[1], 1.0]], np.float32)
+    feat = rng.standard_normal((1, DET_CHANNELS, h, w)).astype(np.float32)
+    x1 = rng.uniform(0, DET_IMAGE[1] - 64, DET_ROIS)
+    y1 = rng.uniform(0, DET_IMAGE[0] - 64, DET_ROIS)
+    rois = np.stack([np.zeros(DET_ROIS), x1, y1,
+                     np.minimum(x1 + rng.uniform(32, 400, DET_ROIS),
+                                DET_IMAGE[1] - 1),
+                     np.minimum(y1 + rng.uniform(32, 300, DET_ROIS),
+                                DET_IMAGE[0] - 1)], 1).astype(np.float32)
+    A = anchors.shape[1]
+    label = np.full((SSD_BATCH, SSD_LABELS, 5), -1.0, np.float32)
+    for i in range(SSD_BATCH):
+        for j in range(rng.integers(1, 7)):
+            x0, y0 = rng.uniform(0.0, 0.7, 2)
+            label[i, j] = [rng.integers(0, SSD_CLASSES - 1), x0, y0,
+                           x0 + rng.uniform(0.05, 0.3),
+                           y0 + rng.uniform(0.05, 0.3)]
+    cls = rng.standard_normal((SSD_BATCH, SSD_CLASSES, A)).astype(np.float32)
+    cls_prob = (np.exp(cls) / np.exp(cls).sum(1, keepdims=True)) \
+        .astype(np.float32)
+    loc = (rng.standard_normal((SSD_BATCH, A * 4)) * 0.2).astype(np.float32)
+    return [
+        ("Proposal", {"scales": (8.0, 16.0, 32.0), "output_score": True},
+         [rpn_prob, deltas, info]),
+        ("ROIPooling", {"pooled_size": DET_POOLED, "spatial_scale": 1 / 16},
+         [feat, rois]),
+        ("MultiBoxTarget", {"negative_mining_ratio": 3.0,
+                            "negative_mining_thresh": 0.5,
+                            "overlap_threshold": 0.5},
+         [anchors, label, cls_prob]),
+        ("MultiBoxDetection", {"nms_threshold": 0.45},
+         [cls_prob, loc, anchors]),
+    ]
+
+
+def _det_run(name, params, ins, device, cots=None):
+    """The port's op ``name`` on ``device`` with autograd: (outputs,
+    gradients of the floating inputs) on the host."""
+    case = {"op": name, "params": params, "kind": "grad", "aux": None,
+            "loc": {str(i): a for i, a in enumerate(ins)}}
+    outs, _, grads = _op_run(case, device, cots)
+    return outs, grads
+
+
+def detection_ops(card):
+    """Proposal, ROIPooling, MultiBoxPrior, MultiBoxTarget and
+    MultiBoxDetection at their networks' sizes, on the card against the
+    CPU, forward and backward; each op's ms on the card and s on the CPU.
+    Returns (launches, record)."""
+    _phase("detection_ops")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    reset_launch_counts()
+    priors = ssd300_priors(dev)
+    cpu_priors = ssd300_priors(torch.device("cpu"))
+    if priors.shape != (1, SSD_ANCHORS, 4):
+        raise AssertionError("SSD-300 priors %s" % (tuple(priors.shape),))
+    torch.testing.assert_close(priors.cpu(), cpu_priors, **DET_TOL)
+    rng = np.random.default_rng(SEED + 13)
+    record = {"card": card, "priors": tuple(priors.shape), "ops": {}}
+    failed = []
+    for name, params, ins in detection_inputs(rng, cpu_priors.numpy()):
+        outs, _ = _det_run(name, params, ins, dev)
+        crng = np.random.default_rng(SEED + 17)
+        cots = [crng.standard_normal(tuple(o.shape)).astype(np.float32)
+                for o in outs]
+        t0 = time.perf_counter()
+        want = _det_run(name, params, ins, torch.device("cpu"), cots)
+        cpu_s = time.perf_counter() - t0
+        got = _det_run(name, params, ins, dev, cots)
+        err = 0.0
+        for g_list, w_list in zip(got, want):
+            for g, w in zip(g_list, w_list):
+                if g.shape != w.shape or not torch.allclose(
+                        g, w, equal_nan=True, **DET_TOL):
+                    failed.append(name)
+                if g.numel():
+                    err = max(err, float((g.double() - w.double()).abs()
+                                         .max()))
+        rec = {"outputs": [tuple(o.shape) for o in want[0]],
+               "max_abs_err": err, "cpu_fwd_bwd_s": cpu_s}
+        if name == "Proposal":
+            rec["distinct_rois"] = int(torch.unique(want[0][0][:, 1:],
+                                                    dim=0).shape[0])
+        if name == "MultiBoxDetection":
+            rec["kept_rows"] = int((want[0][0][..., 0] >= 0).sum())
+        if name == "MultiBoxTarget":
+            rec["positives"] = int((want[0][2] > 0).sum())
+        op = mt.op.registry.get(name)
+        p = op.parse_params(dict(params))
+        ctx = mt.op.registry.OpContext(device=dev)
+        xs = [torch.from_numpy(np.asarray(a)).to(dev) for a in ins]
+        rec["card_forward_ms"] = cuda_ms(lambda: op.apply(p, ctx, *xs),
+                                         warmup=1, iters=3)
+        record["ops"][name] = rec
+    counts = launch_counts()
+    record["launches"] = counts
+    record["failed"] = failed
+    record["phase_s"] = time.perf_counter() - t_phase
+    _emit({"detection_ops": record})
+    print("detection_ops (%s): %s; failed %s" % (
+        card, {n: (r["max_abs_err"], r.get("card_forward_ms"))
+               for n, r in record["ops"].items()}, failed), flush=True)
+    if failed:
+        raise AssertionError("detection_ops: %s" % record)
+    expect_launches("detection_ops", counts)
+    return counts, record
+
+
+# ----------------------------------------------------------------------
+# item8_examples: the example scripts of ROADMAP item 8 unchanged under
+# the port on the card (tools/torch_run_example.py in this process), each
+# to its own assert; the SSD toy with 80 batches (150 by default)
+ITEM8_EXAMPLES = (("examples/numpy-ops/numpy_softmax.py", []),
+                  ("examples/torch-interop/torch_module.py", []),
+                  ("examples/ssd/train_ssd_toy.py", ["--num-batches", "80"]),
+                  ("examples/rcnn/train_rcnn_toy.py", []),
+                  ("examples/warpctc/toy_ctc.py", []))
+# the examples whose symbol holds a node that runs Python
+ITEM8_PYTHON = ("examples/numpy-ops/numpy_softmax.py",
+                "examples/torch-interop/torch_module.py",
+                "examples/rcnn/train_rcnn_toy.py")
+
+
+@mt.operator.register("chip_smoke_scaled_tanh")
+class _ScaledTanhProp(mt.operator.CustomOpProp):
+    """2 tanh(x), a Custom op for the card's fit and server check."""
+
+    def create_operator(self, ctx, in_shapes, in_dtypes):
+        class ScaledTanh(mt.operator.CustomOp):
+            def forward(self, is_train, req, in_data, out_data, aux):
+                self.assign(out_data[0], req[0],
+                            mt.nd.array(2 * np.tanh(in_data[0].asnumpy())))
+
+            def backward(self, req, out_grad, in_data, out_data, in_grad,
+                         aux):
+                y = out_data[0].asnumpy() / 2
+                self.assign(in_grad[0], req[0], mt.nd.array(
+                    out_grad[0].asnumpy() * 2 * (1 - y * y)))
+
+        return ScaledTanh()
+
+
+def _custom_mlp(sym):
+    h = sym.FullyConnected(sym.Variable("data"), num_hidden=32, name="fc1")
+    h = sym.Custom(h, op_type="chip_smoke_scaled_tanh", name="tanh2")
+    h = sym.FullyConnected(h, num_hidden=4, name="fc2")
+    return sym.SoftmaxOutput(h, name="softmax")
+
+
+def custom_on_card():
+    """A Custom node through ``fit`` with MXTPU_MODULE_FUSED=always (the
+    Trainer's steps eager, the reason named, nothing captured) and
+    behind a ModelServer (the tenant's forward eager, nothing captured),
+    each against the port's CPU run."""
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.standard_normal((128, 16)).astype(np.float32)
+    y = (x @ rng.standard_normal((16, 4))).argmax(1).astype(np.float32)
+    init = {"fc1_weight": rng.standard_normal((32, 16)) * 0.3,
+            "fc1_bias": np.zeros(32), "fc2_weight":
+            rng.standard_normal((4, 32)) * 0.3, "fc2_bias": np.zeros(4)}
+    init = {k: v.astype(np.float32) for k, v in init.items()}
+    params = {}
+    for where, ctx in (("cuda", mt.gpu(0)), ("cpu", mt.cpu())):
+        with ctx, _env_scope(MXTPU_MODULE_FUSED="always"):
+            it = mt.io.NDArrayIter(x, y, batch_size=32)
+            mod = mt.mod.Module(_custom_mlp(mt.sym), context=ctx)
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mod.init_params(arg_params={k: mt.nd.array(v)
+                                        for k, v in init.items()})
+            mod.fit(it, num_epoch=5, optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.5})
+            params[where] = {k: v.asnumpy()
+                             for k, v in mod.get_params()[0].items()}
+            if where == "cuda":
+                tr = mod._trainer
+                train = {"uncaptured": tr.uncaptured,
+                         "graph_captures": tr.graph_captures}
+    gap = max(float(np.abs(params["cuda"][k] - params["cpu"][k]).max())
+              for k in init)
+    srv = mt.serving.ModelServer(buckets=[1, 4], max_wait_us=100,
+                                 ctx=mt.gpu(0))
+    srv.add_model("custom", _custom_mlp(mt.sym),
+                  {k: mt.nd.array(v, ctx=mt.gpu(0)) for k, v in
+                   params["cuda"].items()}, {},
+                  input_shapes={"data": (16,)})
+    with srv:
+        got = srv.predict({"data": torch.from_numpy(x[:3])},
+                          model="custom")[0]
+        st = srv.stats()
+    with mt.cpu():
+        ex = _custom_mlp(mt.sym).bind(mt.cpu(), dict(
+            {k: mt.nd.array(v) for k, v in params["cuda"].items()},
+            data=mt.nd.array(x[:3]), softmax_label=mt.nd.zeros((3,))))
+        want = ex.forward()[0].data
+    record = {"train": train, "fit_card_vs_cpu_max_abs": gap,
+              "serve": {"graph_captures": st["graph_captures"],
+                        "uncaptured": st["per_model"]["custom"][
+                            "uncaptured"],
+                        "max_abs_vs_cpu": float((got - want).abs().max())}}
+    reason = "Python bodies: tanh2 (Custom[chip_smoke_scaled_tanh])"
+    if train["uncaptured"] != reason or train["graph_captures"] \
+            or gap > FAMILY_TOL or st["graph_captures"] \
+            or record["serve"]["uncaptured"] != reason \
+            or record["serve"]["max_abs_vs_cpu"] > 1e-5:
+        raise AssertionError("custom_on_card: %s" % record)
+    return record
+
+
+def item8_examples(card):
+    """The item-8 examples on the card, each to its own assert, and what
+    each Module did: the SSD toy's fused step captured once, the scripts
+    with a Python node on the classic path naming it; then
+    ``custom_on_card``.  Returns (launches, record)."""
+    _phase("item8_examples")
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_run_example as runner
+    reset_launch_counts()
+    records = []
+    with runner.as_the_reference():
+        for path, args in ITEM8_EXAMPLES:
+            records.append(runner.run_script(os.path.join(ROOT, path), args))
+            gc.collect()
+    bad = []
+    for rec in records:
+        mods = rec["modules"]
+        if rec["exit"] or not mods:
+            bad.append(rec)
+        elif rec["script"].endswith("train_ssd_toy.py"):
+            if not (mods[0]["fused"] and mods[0]["graph_captures"] == 1
+                    and mods[0]["graph_replays"] > 0
+                    and mods[0]["uncaptured"] is None):
+                bad.append(rec)
+        elif rec["script"] in ITEM8_PYTHON:
+            if any(m["fused"] or not m["fused_refused"] for m in mods):
+                bad.append(rec)
+    record = {"card": card, "examples": records, "custom": custom_on_card()}
+    counts = launch_counts()
+    record["launches"] = counts
+    record["phase_s"] = time.perf_counter() - t_phase
+    _emit({"item8_examples": record})
+    print("item8_examples (%s): %s" % (card, [
+        (r["script"].split("/")[-1], r["exit"], round(r["seconds"], 1),
+         [(m["fused"], m.get("graph_captures"), m["fused_refused"])
+          for m in r["modules"]]) for r in records]), flush=True)
+    if bad:
+        raise AssertionError("item8_examples: %s" % bad)
+    expect_launches("item8_examples", counts)
+    return counts, record
 
 
 def _kernel_line(name, source, replaces, rec, paths, main_path, err, card,
@@ -7106,6 +7702,7 @@ def main():
     paths = {}
     paths["serve"], latencies, serve_traced = serve()
     paths["serve_server"], server = serve_server(card)
+    paths["serve_int8"], _ = serve_int8(card, server["replay_ms"])
     paths["imperative"], _, _ = imperative()
     paths["imperative_bf16"], _ = imperative_bf16()
     trains = {}
@@ -7152,6 +7749,11 @@ def main():
     paths["train_fcn"], _ = train_fcn(card)
     paths["loss_examples"], _ = loss_examples(card)
     paths["op_sweep_card"], _ = op_sweep_card(card)
+    # ROADMAP item 8's ops at their networks' sizes and its examples: the
+    # detection ops, CustomOp and WarpCTC are PyTorch ops, as the JAX
+    # package leaves them to XLA, and launch none of the port's kernels
+    paths["detection_ops"], _ = detection_ops(card)
+    paths["item8_examples"], _ = item8_examples(card)
     # data-parallel training over worker processes (tools/launch.py), two
     # contexts in one Module, and the fused step's remat policies
     gc.collect()

@@ -42,24 +42,37 @@ from . import ndarray as nd
 from . import random
 from . import symbol
 from . import symbol as sym
-from .symbol import Variable
+from .symbol import Variable, Group
 from . import executor
+from .executor import Executor
 from . import autograd
 from . import initializer
 from . import initializer as init
 from . import lr_scheduler
 from . import optimizer
+from .optimizer import Optimizer
 from . import metric
 from . import recordio
 from . import io
 from . import image
+from . import image as img
 from . import kvstore
+from . import kvstore as kv
 from . import model
+from .model import FeedForward
 from . import callback
 from . import monitor
+from . import monitor as mon
+from .monitor import Monitor
 from . import resilience
+from .resilience import CheckpointManager
 from . import module
 from . import module as mod
+from .module import Module
+from . import test_utils
+from . import operator
+from .operator import CustomOp, CustomOpProp
+from . import contrib
 from . import rnn
 from . import parallel
 from . import obs
@@ -92,6 +105,9 @@ envknobs.validate_environ()
 # sampling front-ends re-exported on mx.random (reference mxnet/random.py)
 for _sampler in ("uniform", "normal"):
     setattr(random, _sampler, getattr(ndarray, _sampler))
+
+ndarray.Custom = operator._custom_entry("nd")
+symbol.Custom = operator._custom_entry("sym")
 
 # contrib namespaces: every ``_contrib_<name>`` op also as
 # ``mx.sym.contrib.<name>`` and ``mx.nd.contrib.<name>``

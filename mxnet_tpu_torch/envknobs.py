@@ -103,6 +103,11 @@ KNOBS: Dict[str, _Knob] = dict((
        "chunked async device_puts per host batch"),
     _k("MXTPU_DECODE_START_METHOD", "str", None, "io",
        "multiprocessing start method for decode workers"),
+    # --- quantization --------------------------------------------------
+    _k("MXTPU_QUANT_MODE", "str", "minmax", "quant",
+       "activation calibration mode: minmax|percentile"),
+    _k("MXTPU_QUANT_PERCENTILE", "float", 99.9, "quant",
+       "percentile of |x| per calibration batch (percentile mode)"),
     # --- serving -----------------------------------------------------------
     _k("MXTPU_SERVE_BUCKETS", "list", [1, 4, 8, 16, 32], "serving",
        "AOT batch bucket ladder (comma ints)"),

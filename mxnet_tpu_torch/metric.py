@@ -50,16 +50,24 @@ def _as_list(x):
 class EvalMetric(object):
     """Base class: ``(sum, count)`` accumulated where the predictions
     lie; subclasses implement ``_stat(label, pred)``, both tensors on
-    the predictions' device."""
+    the predictions' device.  With ``num`` the metric counts that many
+    outputs apart: ``sum_metric`` and ``num_inst`` are lists, which the
+    subclass's own ``update`` writes, and ``get`` names them
+    ``<name>_<i>``."""
 
-    def __init__(self, name):
+    def __init__(self, name, num=None):
         self.name = name
+        self.num = num
         self.reset()
 
     def _stat(self, label, pred):
         raise NotImplementedError()
 
     def update(self, labels, preds):
+        if self.num is not None:
+            raise NotImplementedError(
+                "multi-output metrics (num=%d) must override update()"
+                % self.num)
         labels, preds = _as_list(labels), _as_list(preds)
         check_label_shapes(labels, preds)
         for label, pred in zip(labels, preds):
@@ -69,7 +77,8 @@ class EvalMetric(object):
 
     def reset(self):
         self._acc = []          # per-batch (sum, count), not yet on host
-        self._host = [0.0, 0]
+        self._host = [0.0, 0] if self.num is None \
+            else [[0.0] * self.num, [0] * self.num]
 
     def _drain(self):
         """Fold the pending batch statistics into the host sums (the one
@@ -103,8 +112,13 @@ class EvalMetric(object):
 
     def get(self):
         self._drain()
-        total, count = self._host
-        return self.name, (total / count if count else float("nan"))
+        if self.num is None:
+            total, count = self._host
+            return self.name, (total / count if count else float("nan"))
+        names = ["%s_%d" % (self.name, i) for i in range(self.num)]
+        vals = [s / n if n else float("nan")
+                for s, n in zip(self._host[0], self._host[1])]
+        return names, vals
 
     def get_name_value(self):
         name, value = self.get()

@@ -16,6 +16,7 @@ import glob
 import logging
 import os
 import re
+from collections import namedtuple
 
 import numpy as np
 
@@ -28,7 +29,11 @@ from .base import Context, MXNetError, current_context
 from .initializer import Uniform
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint",
-           "FeedForward"]
+           "FeedForward", "BatchEndParam"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
 
 def _create_kvstore(kvstore, num_device, arg_params):
     """``(store, update_on_kvstore)`` (reference ``model.py:40-68``).  One

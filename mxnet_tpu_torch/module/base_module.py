@@ -25,16 +25,13 @@ from __future__ import annotations
 import logging
 import os
 import time
-from collections import namedtuple
 
 from .. import metric as metric_mod
 from .. import ndarray
+from ..model import BatchEndParam
 from .. import obs as _obs
 from ..base import MXNetError
 from ..ndarray import NDArray
-
-BatchEndParam = namedtuple("BatchEndParams",
-                           ["epoch", "nbatch", "eval_metric", "locals"])
 
 
 def _as_list(obj):

@@ -26,7 +26,10 @@ paths, as in the JAX package:
 
 A store on one device (a store object, or a ``dist_sync`` string run in
 one process) keeps the fused path, as the JAX package's single-host fused
-path does.
+path does.  A symbol with a node whose body runs Python (a ``Custom``
+op) cannot be captured: under ``auto`` it takes the classic path, and
+``fused_refused`` names the nodes; under ``always`` the Trainer runs its
+steps eagerly (``Trainer.uncaptured``).
 """
 from __future__ import annotations
 
@@ -114,6 +117,8 @@ class Module(BaseModule):
         # fused path state: bind chose it, init_optimizer makes the trainer
         self._fused = False
         self._auto_fused = False
+        # why bind kept the classic path on a gpu context, or None
+        self.fused_refused = None
         self._trainer = None
         self._staged_batch = None
         self._fused_outputs = None
@@ -303,6 +308,15 @@ class Module(BaseModule):
         auto = self._mesh is None and len(self._context) == 1 and (
             self._fused_mode == "always" or
             self._context[0].device_type == "gpu")
+        # a node whose body runs Python (a Custom op) keeps "auto" on
+        # the classic path: the fused step could not be captured
+        from ..operator import uncapturable
+        from ..symbol import _topo
+        self.fused_refused = None
+        if auto and self._fused_mode == "auto":
+            self.fused_refused = uncapturable(
+                _topo([e[0] for e in self._symbol._outputs]))
+            auto = self.fused_refused is None
         if fused_ok and (auto or self._mesh is not None):
             self._context[0].torch_device()     # raises without the device
             self._fused = True

@@ -9,3 +9,6 @@ from . import nn  # noqa: F401
 from . import attention  # noqa: F401
 from . import rnn_op  # noqa: F401
 from . import optimizer_op  # noqa: F401
+from . import vision  # noqa: F401
+from . import contrib  # noqa: F401
+from . import ctc  # noqa: F401

@@ -76,12 +76,24 @@ def _parse_shape(v):
     return tuple(int(x) for x in v)
 
 
+def _parse_floats(v):
+    """Tuple-of-floats params ('(0.1, 0.2)' strings, scalars, sequences)."""
+    if v is None:
+        return None
+    if isinstance(v, str):
+        v = ast.literal_eval(v)
+    if isinstance(v, (int, float, np.floating, np.integer)):
+        return (float(v),)
+    return tuple(float(x) for x in v)
+
+
 _COERCE = {
     int: lambda v: int(float(v)) if isinstance(v, str) else int(v),
     float: float,
     bool: _parse_bool,
     str: str,
     "shape": _parse_shape,
+    "floats": _parse_floats,
     "dtype": _dtype,
 }
 
@@ -133,6 +145,9 @@ class Op:
     rng_in_eval: Optional[bool] = None
     # the body's result depends on ``OpContext.is_train`` (Dropout)
     mode_dependent: bool = False
+    # the body runs Python on the host (a Custom op): a graph holding it
+    # is never captured in a CUDA graph
+    python_body: bool = False
     hint: str = ""  # auto-naming hint, defaults to lowercased name
 
     def __post_init__(self):

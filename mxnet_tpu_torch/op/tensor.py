@@ -477,24 +477,34 @@ def _topk(p, c, a):
 @register("sort", params_spec=(_axis_param("axis", -1),
                                Param("is_ascend", bool, True)))
 def _sort(p, c, a):
-    out = torch.sort(a, dim=p["axis"], stable=True).values
-    return out if p["is_ascend"] else torch.flip(out, dims=(p["axis"],))
+    """``axis=None`` sorts the flattened array, as ``jnp.sort`` does."""
+    ax = p["axis"]
+    if ax is None:
+        a, ax = a.reshape(-1), 0
+    out = torch.sort(a, dim=ax, stable=True).values
+    return out if p["is_ascend"] else torch.flip(out, dims=(ax,))
 
 
 @register("argsort", params_spec=(_axis_param("axis", -1),
                                   Param("is_ascend", bool, True)))
 def _argsort(p, c, a):
-    idx = torch.argsort(a, dim=p["axis"], stable=True)
+    """``axis=None`` orders the flattened array, as ``jnp.argsort``."""
+    ax = p["axis"]
+    if ax is None:
+        ax = 0
+    idx = torch.argsort(a.reshape(-1) if p["axis"] is None else a, dim=ax,
+                        stable=True)
     if not p["is_ascend"]:
-        idx = torch.flip(idx, dims=(p["axis"],))
+        idx = torch.flip(idx, dims=(ax,))
     return idx.to(a.dtype)
 
 
 # ----------------------------------------------------------------------
 # the rest of indexing
 def _in_range(idx, n):
-    """Integer indices as the JAX ops' gathers read them: negative
-    indices count from the end, then clamp into ``[0, n)``."""
+    """Integer indices as the JAX package's ``batch_take`` reads them:
+    negative indices count from the end, then clamp into ``[0, n)``
+    (``pick`` fills past the axis instead, ``_pick``)."""
     idx = idx.detach().to(torch.int64)
     return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
 
@@ -526,12 +536,29 @@ def _batch_take(p, c, a, indices):
                                Param("keepdims", bool, False)),
           input_names=("data", "index"))
 def _pick(p, c, a, index):
-    """One element along ``axis`` a position, at ``index``."""
+    """One element along ``axis`` a position, at ``index``, as
+    ``jnp.take_along_axis`` reads it: an index in ``[-n, n)`` wraps as
+    in numpy; any other fills its place (NaN for floating types, the
+    type's lowest value for signed ones, its highest for unsigned ones
+    and True for bool), where the gradient is zero."""
     ax = p["axis"] if p["axis"] is not None else a.ndim - 1
     ax %= a.ndim
-    idx = _in_range(index, a.shape[ax]).unsqueeze(ax)
-    out = a.gather(ax, idx)
+    n = a.shape[ax]
+    raw = index.detach().to(torch.int64).unsqueeze(ax)
+    inside = (raw >= -n) & (raw < n)
+    out = a.gather(ax, _in_range(raw, n))
+    out = torch.where(inside, out, _fill_value(a.dtype))
     return out if p["keepdims"] else out.squeeze(ax)
+
+
+def _fill_value(dtype):
+    """What ``jnp``'s out-of-bounds gather fills for ``dtype``."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).min if dtype.is_signed \
+        else torch.iinfo(dtype).max
 
 
 # ----------------------------------------------------------------------

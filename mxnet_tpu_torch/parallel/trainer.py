@@ -432,6 +432,11 @@ class Trainer:
         self.aux_names = list(self.prog.aux_names)
         self.has_rng = any(getattr(n.op, "uses_rng", False)
                            for n in self.prog.nodes if not n.is_variable)
+        # a node whose body runs Python on the host (a Custom op) cannot
+        # be captured: such a step runs eagerly on the card, and this
+        # names the nodes (None where the step is captured)
+        from ..operator import uncapturable
+        self.uncaptured = uncapturable(self.prog.nodes)
         # the ranks draw different masks (the JAX package folds the data
         # axis index into its key), from a generator of their own
         self._rank_gen = None
@@ -1139,7 +1144,8 @@ class Trainer:
         (unless the collectives go through the host), else eager."""
         if self._twin is not None:
             self._twin.set_state(self._rng().get_state())
-        if self.device.type == "cuda" and not self._host_comm:
+        if self.device.type == "cuda" and not self._host_comm \
+                and self.uncaptured is None:
             return self._graph_step(dev_batch)
         return self._step_core(dev_batch)
 

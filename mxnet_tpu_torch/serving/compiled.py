@@ -15,6 +15,9 @@ registers a batch signature; on a CUDA device, given the caller's graph
 holder (a dict), it also runs the forward once eagerly off the caller's
 stream (lazy library set-up, allocator warm-up) and captures it into a
 ``torch.cuda.CUDAGraph`` over static input buffers, kept in that holder.
+A symbol with a node whose body runs Python (a ``Custom`` op) is never
+captured: its forward runs eagerly on the card, and ``uncaptured`` names
+those nodes.
 :meth:`CompiledForward.run` at a registered signature on the card, with
 a holder, copies the batch into the graph's inputs and replays; anywhere
 else it runs the forward eagerly, and a signature that was never
@@ -188,6 +191,11 @@ class CompiledForward:
         # a graph of a forward that draws registers the generator
         self.draws = any(n.op.uses_rng and n.op.rng_in_eval
                          for n in self.prog.nodes if not n.is_variable)
+        # why this forward is never captured (a node whose body runs
+        # Python on the host), None where it is; decided here, before
+        # any request
+        from ..operator import uncapturable
+        self.uncaptured = uncapturable(self.prog.nodes)
         self._lock = _tsan.lock("serving.CompiledForward._lock")
         self._capture_lock = threading.Lock()
         self.trace_count = 0
@@ -269,7 +277,8 @@ class CompiledForward:
                 self._aot_sigs.add(sig)
                 self.trace_count += 1
                 self.traced_batch_sizes.append(self._batch_dim(batch_shapes))
-        if device.type == "cuda" and graphs is not None:
+        if device.type == "cuda" and graphs is not None \
+                and self.uncaptured is None:
             self._graph(graphs, sig, params, aux, batch_shapes, dtypes,
                         device)
         return verdict
@@ -357,7 +366,8 @@ class CompiledForward:
                 self.trace_count += 1
                 self.traced_batch_sizes.append(b)
                 self.lazy_batch_sizes.append(b)
-        if device.type != "cuda" or not known or graphs is None:
+        if device.type != "cuda" or not known or graphs is None \
+                or self.uncaptured is not None:
             feed = {n: v.to(device, non_blocking=True)
                     for n, v in batch.items()}
             outs = self._forward(params, aux, feed, device)

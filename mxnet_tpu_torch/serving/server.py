@@ -85,9 +85,11 @@ constructor              env                             default
 
 Waiting for later slices, each raising :class:`MXNetError` that names
 it: ``mesh=`` (several devices), ``plan=`` / ``MXTPU_TUNE_PLAN`` (tune
-plans), ``precision="int8"`` (quantized tenants; every port symbol is
-unquantized, so ``auto``/``float32``/``bfloat16`` admit it), and
-``lint()`` (the static analyses).  ``predicted_peak_bytes`` stays 0, so
+plans) and ``lint()`` (the static analyses).  ``precision="int8"``
+admits only tenants that ``contrib.quantization`` rewrote (their int8
+weights held at 1 byte an element, counted in
+``weight_bytes_on_device``), ``float32``/``bfloat16`` refuse them, and
+``auto`` admits both.  ``predicted_peak_bytes`` stays 0, so
 ``mem_budget`` gates on weight bytes alone — the JAX package's own
 fallback when its liveness analysis cannot price a tenant.
 
@@ -106,6 +108,7 @@ import numpy as np
 import torch
 
 from ..base import Context, MXNetError, current_context
+from ..contrib.quantization import quant_tag
 from ..convert import _tensor
 from ..ndarray import NDArray
 from .. import _tsan
@@ -378,18 +381,12 @@ class ModelServer:
         self.breaker_cooldown_s = (
             breaker_cooldown_ms if breaker_cooldown_ms is not None
             else _env_int("MXTPU_SERVE_BREAKER_COOLDOWN_MS", 1000)) / 1e3
-        # precision tier contract: "auto" admits anything;
-        # "float32"/"bfloat16" reject quantized tenants, and the port has
-        # none (every symbol's quant tag is "none"); "int8" requires
-        # quantized tenants, which wait for the port's quantization
+        # precision tier contract: "auto" admits anything; "int8"
+        # requires every tenant symbol to be quantized (quant_tag !=
+        # none); "float32"/"bfloat16" reject quantized tenants
         if precision is None:
             precision = _envknobs.get_str("MXTPU_SERVE_PRECISION", "auto")
-        if precision == "int8":
-            raise MXNetError("precision='int8' serves quantized tenants, "
-                             "which wait for the port's "
-                             "contrib/quantization.py (ROADMAP queue A "
-                             "item 8)")
-        if precision not in ("auto", "float32", "bfloat16"):
+        if precision not in ("auto", "float32", "bfloat16", "int8"):
             raise MXNetError("precision %r is not auto|float32|bfloat16"
                              "|int8" % (precision,))
         self.precision = precision
@@ -518,10 +515,19 @@ class ModelServer:
             symbol, params, list(example_shapes) + label_names,
             declared=input_dtypes)
 
-        # precision-tier admission: no port symbol carries a quantized
-        # op, so every tenant's tag is "none", which auto, float32 and
-        # bfloat16 admit (int8 raised at construction)
-        tag = "none"
+        # precision-tier admission: the knob is only as real as its
+        # enforcement — an int8 tier must not silently serve a float
+        # checkpoint (and vice versa)
+        tag = quant_tag(symbol)
+        if self.precision == "int8" and tag == "none":
+            raise MXNetError(
+                "server precision tier is int8 but model %r is not "
+                "quantized (contrib.quantization.quantize_model or "
+                "calibrate_model first)" % name)
+        if self.precision in ("float32", "bfloat16") and tag != "none":
+            raise MXNetError(
+                "server precision tier is %s but model %r carries a "
+                "quantized symbol (%s)" % (self.precision, name, tag))
 
         cf = compiled_forward(
             symbol, list(example_shapes) + label_names,
@@ -1298,6 +1304,8 @@ class ModelServer:
                     "weight_bytes_on_device": m.weight_bytes_on_device,
                     "quant": m.quant,
                     "predicted_peak_bytes": m.predicted_peak_bytes,
+                    # why the tenant's forward runs uncaptured, or None
+                    "uncaptured": m.cf.uncaptured,
                 }
         # the latency EWMA lives under each CompiledForward's own lock;
         # read it AFTER releasing _cond (never nest the two) — same for
@@ -1378,6 +1386,8 @@ class ModelServer:
                 "breaker_state": m.breaker,
                 "ewma_batch_ms": None if ewma is None
                 else ewma * 1e3,
+                "weight_bytes_on_device": m.weight_bytes_on_device,
+                "quant": m.quant,
             }
         return {
             "available": bool(self._started) and not self._stop

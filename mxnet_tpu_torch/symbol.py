@@ -20,7 +20,7 @@ from . import op as _op  # noqa: F401  (populates the registry)
 from .base import MXNetError, _dtype, dtype_name
 from .op import registry as _reg
 
-__all__ = ["Symbol", "Variable", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -187,6 +187,11 @@ class Symbol:
             return self._outputs[0][0].attrs.get(key)
         return None
 
+    def _set_attr(self, **kwargs):
+        """Set attributes on the outputs' nodes."""
+        for node, _ in self._outputs:
+            node.attrs.update(kwargs)
+
     def attr_dict(self):
         """Every node's attributes and params as strings, by node name
         (the ``__lr_mult__``/``__init__`` a Variable carries included)."""
@@ -347,6 +352,9 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
         node.attrs["__init__"] = init if isinstance(init, str) \
             else init.dumps()
     return Symbol([(node, 0)])
+
+
+var = Variable
 
 
 def Group(symbols) -> Symbol:

@@ -17,11 +17,13 @@ FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
 def _port_sources():
-    """The port's modules, the card's smoke script and the scripts the
-    launcher starts for the data-parallel tests and the elastic drill."""
+    """The port's modules, the card's smoke script, the scripts the
+    launcher starts for the data-parallel tests and the elastic drill,
+    and the runner of the examples under the port."""
     return sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py",
-           ROOT / "tests" / "torch_elastic_train.py"]
+           ROOT / "tests" / "torch_elastic_train.py",
+           ROOT / "tools" / "torch_run_example.py"]
 
 
 def _imported_modules(path):

@@ -140,3 +140,47 @@ def test_bilinear_is_the_upsampling_kernel():
     hat = np.array([0.25, 0.75, 0.75, 0.25], "f")
     np.testing.assert_array_equal(got[1, 2], np.outer(hat, hat))
     assert mt.init.create("bilinear").__class__ is mt.init.Bilinear
+
+
+class _Two:
+    """A metric over two outputs, as examples/multi-task's MultiAccuracy
+    counts them in its own update."""
+
+    @staticmethod
+    def make(pkg):
+        class MultiAccuracy(pkg.metric.EvalMetric):
+            def __init__(self):
+                super().__init__("multi-accuracy", num=2)
+
+            def update(self, labels, preds):
+                for i in range(self.num):
+                    pred = preds[i].asnumpy().argmax(axis=1)
+                    label = labels[i].asnumpy().astype("int32")
+                    self.sum_metric[i] += float((pred == label).sum())
+                    self.num_inst[i] += len(label)
+
+        return MultiAccuracy()
+
+
+def test_a_metric_counts_several_outputs_as_the_jax_package():
+    """``EvalMetric(name, num=)``: list counters, ``get`` by ``name_i``,
+    ``reset`` of each, and the base ``update`` refusing to count."""
+    rng = np.random.RandomState(2)
+    got, want = _Two.make(mt), _Two.make(mx)
+    for _ in range(3):
+        labels = [rng.randint(0, 3, 8).astype("f") for _ in range(2)]
+        preds = [rng.rand(8, 3).astype("f") for _ in range(2)]
+        got.update([mt.nd.array(x, ctx=mt.cpu()) for x in labels],
+                   [mt.nd.array(x, ctx=mt.cpu()) for x in preds])
+        want.update([mx.nd.array(x) for x in labels],
+                    [mx.nd.array(x) for x in preds])
+    assert got.get() == want.get()
+    assert got.get()[0] == ["multi-accuracy_0", "multi-accuracy_1"]
+    got.reset()
+    want.reset()
+    assert got.sum_metric == want.sum_metric == [0.0, 0.0]
+    assert got.num_inst == want.num_inst == [0, 0]
+    base = mt.metric.EvalMetric("m", num=2)
+    with pytest.raises(NotImplementedError):
+        base.update([mt.nd.zeros((2,), ctx=mt.cpu())],
+                    [mt.nd.zeros((2, 3), ctx=mt.cpu())])

@@ -12,9 +12,12 @@ more); a forward case (``F``) is checked to 1e-3 / 1e-4, as
 against the JAX op, forward and backward.  A forward case's own contract
 (``fwd`` or ``check``) is applied to the port's output too.  Samplers draw
 from other generators than the JAX package's, so theirs is checked by
-the case's ``check`` alone.  The ops the port does not register are
-exactly ROADMAP item 8's families, and no case of another op is left
-out."""
+the case's ``check`` alone.  The port registers every op of the JAX registry, so every case runs,
+the imperative ``_imdecode`` case through both packages' ``mx.nd``.
+Three cases more pin the order rules where scores or maxima tie:
+ROIPooling's gradient splits evenly among tied maxima, Proposal's top-k
+takes the lower index first, and MultiBoxDetection's NMS and sort keep
+index order among equal scores."""
 import importlib.util
 import os
 
@@ -32,22 +35,15 @@ _SPEC = importlib.util.spec_from_file_location("_op_sweep_table", _PATH)
 TABLE = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(TABLE)
 
-# ROADMAP item 8: the vision, contrib (MultiBox*, Proposal, fft,
-# count_sketch) and CTC families and _imdecode, under every name
-ITEM_8 = {
-    "BilinearSampler", "Correlation", "GridGenerator", "ROIPooling",
-    "SpatialTransformer", "_imdecode", "MultiBoxPrior", "MultiBoxTarget",
-    "MultiBoxDetection", "Proposal", "_contrib_MultiBoxPrior",
-    "_contrib_MultiBoxTarget", "_contrib_MultiBoxDetection",
-    "_contrib_Proposal", "count_sketch", "_contrib_count_sketch", "fft",
-    "ifft", "_contrib_fft", "_contrib_ifft", "WarpCTC"}
+# the JAX registry's ops the port does not register: none
+ITEM_8 = set()
 
 
 def _registered(name):
     return name in treg._REGISTRY or name in treg._ALIASES
 
 
-RUN = [c for c in TABLE.CASES if c["kind"] != "imp" and _registered(c["op"])]
+RUN = [c for c in TABLE.CASES if _registered(c["op"])]
 
 
 def _sampler(case):
@@ -63,8 +59,32 @@ def _close(got, want, rtol, atol, what):
                                    err_msg="%s[%d]" % (what, i))
 
 
+def _png(img):
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return np.frombuffer(buf.getvalue(), dtype=np.uint8)
+
+
+def _port_imdecode():
+    """The table's ``_imdecode`` case through the port's ``mx.nd``."""
+    import mxnet_tpu_torch as mt
+    img = (np.arange(4 * 6 * 3) % 255).astype("uint8").reshape(4, 6, 3)
+    with mt.cpu():
+        out = mt.nd._imdecode(mt.nd.array(_png(img).astype("f")))
+    np.testing.assert_array_equal(out.asnumpy().astype("uint8"), img)
+
+
+PORT_IMPERATIVE = {"_imdecode": _port_imdecode}
+
+
 @pytest.mark.parametrize("case", RUN, ids=[c["id"] for c in RUN])
 def test_case_matches_jax(case):
+    if case["kind"] == "imp":
+        case["run"]()
+        PORT_IMPERATIVE[case["op"]]()
+        return
     ins = [np.asarray(v, np.float32) for v in case["loc"].values()]
     aux = [np.asarray(v, np.float32) for v in (case["aux"] or {}).values()]
     params = dict(case["params"])
@@ -111,3 +131,53 @@ def test_cases_not_run_are_exactly_item_8():
     assert skipped == ITEM_8
     assert len(RUN) == len([c for c in TABLE.CASES
                             if c["op"] not in ITEM_8])
+
+
+def _tie_rois():
+    """Blocks of equal values, so every bin's maximum is tied."""
+    data = np.repeat(np.repeat(np.arange(8, dtype=np.float32)
+                               .reshape(1, 2, 2, 2), 3, axis=2), 3, axis=3)
+    rois = np.array([[0, 0, 0, 5, 5], [0, 1, 1, 4, 5]], np.float32)
+    return "ROIPooling", {"pooled_size": (2, 2), "spatial_scale": 1.0}, \
+        [data, rois]
+
+
+def _tie_proposal():
+    """Every foreground score equal: the top-k and the NMS keep index
+    order."""
+    rng = np.random.default_rng(3)
+    prob = np.full((1, 2, 4, 4), 0.5, np.float32)
+    deltas = (rng.standard_normal((1, 4, 4, 4)) * 0.05).astype(np.float32)
+    info = np.array([[32, 32, 1.0]], np.float32)
+    return "Proposal", {"feature_stride": 8, "scales": "(2,)",
+                        "ratios": "(1.0,)", "rpn_pre_nms_top_n": 10,
+                        "rpn_post_nms_top_n": 6, "threshold": 0.5,
+                        "rpn_min_size": 1, "output_score": True}, \
+        [prob, deltas, info]
+
+
+def _tie_detection():
+    """Equal scores over overlapping boxes of two classes."""
+    prob = np.array([[[0.2, 0.2, 0.2, 0.2],
+                      [0.4, 0.4, 0.4, 0.1],
+                      [0.4, 0.4, 0.4, 0.7]]], np.float32)
+    anchors = np.array([[[0.1, 0.1, 0.5, 0.5], [0.12, 0.1, 0.52, 0.5],
+                         [0.6, 0.6, 0.9, 0.9], [0.1, 0.1, 0.5, 0.5]]],
+                       np.float32)
+    loc = np.zeros((1, 16), np.float32)
+    return "MultiBoxDetection", {"nms_threshold": 0.5}, \
+        [prob, loc, anchors]
+
+
+TIES = [_tie_rois, _tie_proposal, _tie_detection]
+
+
+@pytest.mark.parametrize("make", TIES, ids=[f.__name__[5:] for f in TIES])
+def test_ties_follow_the_jax_order(make):
+    """Outputs exactly, gradients to 1e-6: at a tie the JAX op's order
+    rule decides which element is kept or where a gradient goes."""
+    name, params, ins = make()
+    w_out, _, w_grads, cots = jax_apply(name, params, ins, (), True, seed=2)
+    g_out, _, g_grads = port_apply(name, params, ins, (), True, cots)
+    _close(g_out, w_out, 0, 0, name + " outputs")
+    _close(g_grads, w_grads, 1e-6, 1e-6, name + " gradients")

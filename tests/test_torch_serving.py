@@ -499,14 +499,14 @@ def test_submit_after_stop_raises():
 
 
 def test_options_of_later_slices_raise(monkeypatch):
-    """Tune plans, int8 tenants and the static analyses raise, each
-    naming its slice; the other precision tiers admit the port's
-    (unquantized) symbols."""
+    """Tune plans and the static analyses raise, each naming its slice;
+    the int8 tier refuses an unquantized symbol, and the other precision
+    tiers admit it."""
     with pytest.raises(MXNetError, match="tuneplan"):
         serving.ModelServer(plan={}, ctx=mt.cpu())
-    with pytest.raises(MXNetError, match="quantization"):
-        serving.ModelServer(precision="int8", ctx=mt.cpu())
     sym, args, example = _mlp()
+    with pytest.raises(MXNetError, match="not quantized"):
+        _server(sym, args, example, precision="int8")
     for tier in ("auto", "float32", "bfloat16"):
         srv = _server(sym, args, example, precision=tier)
         assert srv.stats()["per_model"]["m"]["quant"] == "none"

@@ -22,8 +22,8 @@ from mxnet_tpu_torch.base import MXNetError
 from torch_parity import rel_err
 
 TOL = 1e-6
-ITEM_8_CONTRIB = {"MultiBoxPrior", "MultiBoxTarget", "MultiBoxDetection",
-                  "Proposal", "count_sketch", "fft", "ifft"}
+CONTRIB = {"DotProductAttention", "MultiBoxPrior", "MultiBoxTarget",
+           "MultiBoxDetection", "Proposal", "count_sketch", "fft", "ifft"}
 
 
 def _net(pkg):
@@ -182,9 +182,9 @@ def test_wait_to_write_and_contrib_namespaces():
     with mt.cpu():
         a = mt.nd.ones((2, 3))
     assert a.wait_to_write() is None and a.wait_to_read() is None
-    jax_contrib = {n for n in vars(mx.sym.contrib)} - ITEM_8_CONTRIB
+    jax_contrib = {n for n in vars(mx.sym.contrib)}
     assert set(vars(mt.sym.contrib)) == jax_contrib \
-        == set(vars(mt.nd.contrib)) == {"DotProductAttention"}
+        == set(vars(mt.nd.contrib)) == CONTRIB
     rng = np.random.default_rng(3)
     q, k, v = (rng.standard_normal((1, 4, 2, 8)).astype(np.float32)
                for _ in range(3))

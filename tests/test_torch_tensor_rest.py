@@ -205,3 +205,54 @@ def test_every_sampler_name_of_the_jax_registry():
         with mt.cpu():
             arr = getattr(mt.nd, n)(shape=(3, 2), dtype="float16")
         assert arr.shape == (3, 2) and arr.dtype == torch.float16
+
+
+@pytest.mark.parametrize("op,params", [
+    ("sort", {"axis": None}), ("sort", {"axis": None, "is_ascend": False}),
+    ("argsort", {"axis": None}),
+    ("argsort", {"axis": None, "is_ascend": False}),
+    ("topk", {"axis": None, "k": 2}),
+    ("topk", {"axis": None, "k": 2, "ret_typ": "value"})])
+def test_ordering_with_axis_none_matches_jax(op, params):
+    """``axis=None``: sort and argsort order the flattened array, as
+    ``jnp.sort``/``jnp.argsort`` do; topk takes the last axis, as the JAX
+    op does.  Exact: sorted values and integer indices, ties included."""
+    x = np.random.default_rng(5).integers(0, 6, (2, 4, 3)) \
+        .astype(np.float32)
+    (got, _, _), (want, _, _) = both(op, params, [x], is_train=False)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_sort_with_axis_none_infers_a_flat_shape():
+    import mxnet_tpu as mx
+    for pkg in (mx, mt):
+        a = pkg.sym.Variable("a")
+        for op in (pkg.sym.sort, pkg.sym.argsort):
+            _, out, _ = op(a, axis=None).infer_shape(a=(2, 5))
+            assert out == [(10,)], (pkg.__name__, out)
+
+
+@pytest.mark.parametrize("index", [(-1, 5, 2), (-5, 4, 3)])
+def test_pick_past_the_axis_fills_as_the_jax_package(index):
+    """``pick`` reads its indices as ``jnp.take_along_axis`` does: an
+    index in ``[-n, n)`` wraps, any other fills its place with NaN (the
+    type's lowest value for a signed integer type), with a zero
+    gradient there."""
+    import mxnet_tpu as mx
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    idx = np.asarray(index, np.float32)
+    (got, _, ggrad), (want, _, wgrad) = both(
+        "pick", {"axis": 1}, [a, idx], is_train=True)
+    expect = {(-1, 5, 2): [3, np.nan, 10], (-5, 4, 3): [np.nan, np.nan, 11]}
+    np.testing.assert_array_equal(got[0], np.asarray(expect[index], "f"))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(ggrad[0], wgrad[0])
+    assert not ggrad[0][np.isnan(got[0])].any()
+    ai = np.arange(12, dtype=np.int32).reshape(3, 4)
+    ii = np.asarray(index, np.int32)
+    with mt.cpu():
+        gi = mt.nd.pick(mt.nd.array(ai), mt.nd.array(ii), axis=1).asnumpy()
+    wi = mx.nd.pick(mx.nd.array(ai), mx.nd.array(ii), axis=1).asnumpy()
+    np.testing.assert_array_equal(gi, wi)

@@ -22,15 +22,17 @@ launcher turns into ``ELASTIC_RECOVERY_S``.
 
 ``--replay E``: the parity reference, one process without a launcher
 resuming from checkpoint epoch E of the same workdir and training the
-same remaining epochs.  Its final parameters must be bitwise the
+same remaining epochs; it waits for that checkpoint, so it may start
+beside the elastic run.  Its final parameters must be bitwise the
 elastic run's.
 
 ``--model mlp`` (the default) is the JAX drill's MLP on the CPU;
 ``--model gpt2`` is GPT-2 small in bfloat16 on the card (the fused step
-through the attention kernels), with fewer, shorter epochs and a longer
-heartbeat timeout (a 2 GB checkpoint's save holds the interpreter lock
-for seconds, which a heartbeat thread starved past the timeout cannot
-tell from death).  Each process writes ``record-<round>-rank<r>.json``:
+through the attention kernels, at 2 layers: its widths, not its
+depth), with fewer, shorter epochs and a longer
+heartbeat timeout (a checkpoint's save of a GB or two holds the
+interpreter lock in stalls that a heartbeat thread starved past a short
+timeout cannot tell from death: at 12 layers a 4 s timeout once failed).  Each process writes ``record-<round>-rank<r>.json``:
 its kernel launches and the longest the interpreter lock kept a thread
 waking every 50 ms waiting past its time; the final parameters' digests
 go to ``final.json`` (``replay-final.json``) and, for the MLP, the
@@ -53,11 +55,14 @@ import numpy as np
 LOCAL_BATCH = 16
 N_ROWS = 128
 TOTAL_EPOCHS = 4
-# the GPT-2 drill: GPT-2 small's widths, 2 epochs of 2 steps of 2 rows a
-# rank before the shrink, then one rank
-GPT2 = dict(seq_len=1024, num_hidden=768, num_heads=12, num_layers=12,
+# the GPT-2 drill: GPT-2 small's widths at 2 layers (the checkpoint is
+# then mostly the 38.6 M-parameter embedding), 2 epochs of 2 steps of 2
+# rows a rank before the shrink, then one rank
+GPT2 = dict(seq_len=1024, num_hidden=768, num_heads=12, num_layers=2,
             vocab_size=50257)
 GPT2_ROWS, GPT2_STEPS, GPT2_EPOCHS = 2, 2, 3
+# how long a replay waits for the checkpoint it starts from
+REPLAY_WAIT_S = 600
 
 
 def _net(mt, model):
@@ -155,14 +160,15 @@ def main():
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--replay", type=int, default=None, metavar="EPOCH",
                     help="parity reference: one process without a "
-                    "launcher resumed from checkpoint EPOCH")
+                    "launcher resumed from checkpoint EPOCH, which it "
+                    "waits for (it may start beside the run it checks)")
     args = ap.parse_args()
     epochs = args.epochs or (GPT2_EPOCHS if args.model == "gpt2"
                              else TOTAL_EPOCHS)
 
     # tight drill timings (each still the caller's to set)
     os.environ.setdefault("MXTPU_ELASTIC_HB_TIMEOUT_S",
-                          "20" if args.model == "gpt2" else "4")
+                          "10" if args.model == "gpt2" else "4")
     os.environ.setdefault("MXTPU_ELASTIC_STEP_TIMEOUT_S", "12")
     os.environ.setdefault("MXTPU_ELASTIC_CHECK_S", "0.5")
     os.environ.setdefault("MXTPU_MODULE_FUSED", "always")
@@ -184,6 +190,13 @@ def main():
     mt.random.seed(0)
 
     if args.replay is not None:
+        # the manifest is committed last, by a rename
+        deadline = time.monotonic() + REPLAY_WAIT_S
+        while not os.path.exists(mgr._manifest_path(args.replay)):
+            if time.monotonic() > deadline:
+                raise SystemExit("no checkpoint at epoch %d after %d s"
+                                 % (args.replay, REPLAY_WAIT_S))
+            time.sleep(0.2)
         ck = mgr.verify(args.replay)
         assert ck is not None, "no intact checkpoint at epoch %d" \
             % args.replay

@@ -22,12 +22,14 @@ def _floating(a):
 
 
 def jax_apply(name, kw, ins, aux=(), is_train=True, cots=None,
-              dtype="float32", seed=None):
+              dtype="float32", seed=None, jit=False):
     """The JAX op ``name`` on ``ins`` (+ ``aux``): ``(outputs, new aux,
     gradients of the floating inputs for the cotangents cots)`` as
     float32 numpy (a non-floating input's gradient is None).  With a
     ``seed`` and no ``cots`` the cotangents are ``cotangents(outputs,
-    seed)``, returned as a fourth element."""
+    seed)``, returned as a fourth element.  ``jit`` compiles the op
+    once, where running it primitive by primitive would take seconds
+    (the scans of the detection ops)."""
     op = jreg.get(name)
     p = op.parse_params(dict(kw))
     ctx = jreg.OpContext(is_train=is_train, rng=jax.random.key(0),
@@ -43,7 +45,8 @@ def jax_apply(name, kw, ins, aux=(), is_train=True, cots=None,
             full[i] = v
         return op.apply(p, ctx, *full, *aux_j)
 
-    (outs, new_aux), vjp = jax.vjp(f, *[xs[i] for i in diff])
+    (outs, new_aux), vjp = jax.vjp(jax.jit(f) if jit else f,
+                                   *[xs[i] for i in diff])
     grads = [None] * len(ins)
     made = cots is None and seed is not None
     if made:
@@ -107,9 +110,11 @@ def cotangents(outs, seed=1):
     return [rng.standard_normal(o.shape).astype(np.float32) for o in outs]
 
 
-def both(name, kw, ins, aux=(), is_train=True, dtype="float32", seed=1):
+def both(name, kw, ins, aux=(), is_train=True, dtype="float32", seed=1,
+         jit=False):
     """Both ops with the same random cotangents: ``(port, jax)``."""
-    *want, cots = jax_apply(name, kw, ins, aux, is_train, None, dtype, seed)
+    *want, cots = jax_apply(name, kw, ins, aux, is_train, None, dtype, seed,
+                            jit)
     got = port_apply(name, kw, ins, aux, is_train, cots, dtype)
     return got, tuple(want)
 
